@@ -1,0 +1,137 @@
+"""Port G1 arithmetic (zkevm_circuits_tpu_torch.crypto.curve and the
+plain version of kernel K5) against the JAX package and the host-int
+oracle, exact bytes.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from zkevm_circuits_tpu.crypto import curve as jc
+from zkevm_circuits_tpu_torch.crypto import curve as tc
+from zkevm_circuits_tpu_torch.crypto.params import FQ_MODULUS, FR_MODULUS, G1_GEN
+from zkevm_circuits_tpu_torch.ops import cuda_curve as cc
+
+torch.set_num_threads(2)
+# one compile each, shared by every case (all cases have ROWS rows)
+_jadd = jax.jit(jc.g1_add)
+_jdbl = jax.jit(jc.g1_double)
+ROWS = 10
+
+
+def _affine_points(seed, n):
+    rng = np.random.default_rng(seed)
+    scal = [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS for _ in range(n)]
+    return [jc.host_g1_mul(G1_GEN, s) for s in scal]
+
+
+def _jacobian(points, seed):
+    """Host-int Jacobian representatives (x z^2, y z^3, z) with random z."""
+    rng = np.random.default_rng(seed)
+    q = FQ_MODULUS
+    out = []
+    for p in points:
+        z = int.from_bytes(rng.bytes(32), "little") % (q - 1) + 1
+        out.append((p[0] * z * z % q, p[1] * z * z * z % q, z))
+    return out
+
+
+def _jac_g1(triples):
+    """Host Jacobian int triples -> reference (numpy) G1 batch."""
+    F = jc.F
+    mont = lambda vals: F.from_ints([v * F.R % F.modulus for v in vals])  # noqa: E731
+    return jc.G1(*(mont([t[i] for t in triples]) for i in range(3)))
+
+
+def _to_t(p):
+    return tc.G1(*(torch.as_tensor(np.ascontiguousarray(np.asarray(c))) for c in p))
+
+
+def _same(jp, tp):
+    return all(np.array_equal(np.asarray(a), b.numpy()) for a, b in zip(jp, tp))
+
+
+def _affine(tp):
+    return tc.g1_to_affine_ints(tp)
+
+
+def _cases(mode):
+    """ROWS point pairs that are valid inputs of `mode`."""
+    extra = 4 if mode == "complete" else 2
+    a = _affine_points(1, ROWS - extra)
+    b = _affine_points(2, ROWS - extra)
+    if mode == "affine":
+        pa = a + [None, a[0]]
+        qa = b + [b[1], None]
+        return jc.g1_from_affine_ints(pa), jc.g1_from_affine_ints(qa), pa, qa
+    pj, qj = _jacobian(a, 3), _jacobian(b, 4)
+    p_aff, q_aff = list(a), list(b)
+    if mode == "incomplete":
+        pj += [(1, 1, 0), pj[0]]
+        qj += [qj[1], (1, 1, 0)]
+        p_aff += [None, a[0]]
+        q_aff += [b[1], None]
+    else:
+        # P = Q, P = -Q, P = inf, Q = inf
+        pj += [pj[0], pj[1], (1, 1, 0), pj[2]]
+        qj += [pj[0], (pj[1][0], (-pj[1][1]) % FQ_MODULUS, pj[1][2]), qj[3], (1, 1, 0)]
+        p_aff += [a[0], a[1], None, a[2]]
+        q_aff += [a[0], (a[1][0], (-a[1][1]) % FQ_MODULUS), b[3], None]
+    return _jac_g1(pj), _jac_g1(qj), p_aff, q_aff
+
+
+@pytest.mark.parametrize("mode", ["complete", "incomplete", "affine"])
+def test_k5_plain_matches_reference_and_oracle(mode):
+    p, q, p_aff, q_aff = _cases(mode)
+    got = tc.G1(*cc.g1_add_plain(*_to_t(p), *_to_t(q), mode=mode))
+    assert _same(_jadd(p, q), got)
+    want = [jc.host_g1_add(x, y) for x, y in zip(p_aff, q_aff)]
+    assert _affine(got) == want
+
+
+def test_g1_add_routes_cpu_to_plain():
+    p, q, _, _ = _cases("complete")
+    from zkevm_circuits_tpu_torch.ops import cuda_field as cf
+
+    cf.reset_launches()
+    got = tc.g1_add(_to_t(p), _to_t(q))
+    assert cf.LAUNCHES["g1_add"] == 0
+    assert _same(_jadd(p, q), got)
+
+
+def test_g1_double_matches_reference():
+    a = _affine_points(5, ROWS - 1)
+    pj = _jacobian(a, 6) + [(1, 1, 0)]
+    p = _jac_g1(pj)
+    got = tc.g1_double(_to_t(p))
+    assert _same(_jdbl(p), got)
+    assert _affine(got) == [jc.host_g1_add(x, x) for x in a] + [None]
+
+
+def test_g1_scalar_mul_matches_host():
+    a = _affine_points(7, 2)
+    scal = [5, (1 << 200) + 12345]
+    p = _to_t(jc.g1_from_affine_ints(a))
+    digits = np.array([list(s.to_bytes(32, "little")) for s in scal], np.uint8)
+    got = tc.g1_scalar_mul(p, torch.as_tensor(digits))
+    assert _affine(got) == [jc.host_g1_mul(x, s) for x, s in zip(a, scal)]
+
+
+def test_normalize_neg_select_and_affine_ints():
+    a = _affine_points(8, 3)
+    pj = _jacobian(a, 9) + [(1, 1, 0)]
+    p = _jac_g1(pj)
+    tp = _to_t(p)
+    assert _affine(tc.g1_normalize(tp)) == a + [None]
+    norm = tc.g1_normalize(tp)
+    assert torch.equal(norm.z[:3], torch.as_tensor(np.stack([jc.F.ONE_MONT] * 3)))
+    assert _same(jc.g1_from_affine_ints(a), tc.G1(*(c[:3] for c in norm)))
+    neg = tc.g1_neg(tp)
+    assert _affine(neg) == [(x, (-y) % FQ_MODULUS) for x, y in a] + [None]
+    cond = torch.as_tensor([True, False, True, False])
+    sel = tc.g1_select(cond, tp, neg)
+    assert _affine(sel) == [a[0], _affine(neg)[1], a[2], None]
+    assert _affine(tp) == a + [None]
+    back = tc.g1_from_affine_ints(a + [None], device="cpu")
+    assert _same(jc.g1_from_affine_ints(a + [None]), back)

@@ -1,0 +1,102 @@
+"""Card-only tests of the port: each CUDA kernel against its plain
+version on the card, byte for byte, and the k=5 golden proof on the card.
+
+They skip without a card.  This file imports no JAX (the card's machine
+has none); run it there with
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from zkevm_circuits_tpu_torch.crypto.curve import G1
+from zkevm_circuits_tpu_torch.crypto.field import fq, fr
+from zkevm_circuits_tpu_torch.ops import cuda_curve as cc
+from zkevm_circuits_tpu_torch.ops import cuda_field as cf
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _rand_fe(seed, n, modulus):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    d[:, 31] = rng.integers(0, modulus >> 248, size=n, dtype=np.uint8)
+    for i, v in enumerate((0, 1, modulus - 1)):
+        d[i] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    return d
+
+
+@pytest.mark.parametrize("fid", [cf.FIELD_FR, cf.FIELD_FQ])
+def test_k1_kernel_matches_plain(dev, fid):
+    p = cf.MODULI[fid]
+    a = torch.as_tensor(_rand_fe(1, 4096, p), device=dev)
+    b = torch.as_tensor(_rand_fe(2, 4096, p), device=dev)
+    before = cf.LAUNCHES["mont_mul"]
+    assert torch.equal(cf.mont_mul(a, b, fid), cf.mont_mul_plain(a, b, fid))
+    assert cf.LAUNCHES["mont_mul"] == before + 1
+    assert torch.equal(cf.mont_mul_cuda(a, b[7], fid), cf.mont_mul_plain(a, b[7], fid))
+
+
+def test_k2_k3_kernels_match_plain(dev):
+    rng = np.random.default_rng(3)
+    t = rng.integers(0, 2**31 - 1, size=(4096, 63), dtype=np.int64)
+    t[:, 34:] = rng.integers(0, 2**20, size=(4096, 29))
+    t[:, 60:] = 0
+    t = torch.as_tensor(t.astype(np.int32), device=dev)
+    assert torch.equal(cf.redc34_cuda(t), cf.redc34_plain(t))
+    y = torch.as_tensor(_rand_fe(4, 16 * 3 * 32, fr().modulus), device=dev)
+    y = y.reshape(16, 3, 32, 32)
+    tw = torch.as_tensor(_rand_fe(5, 16 * 32, fr().modulus), device=dev)
+    tw = tw.reshape(16, 32, 32)
+    assert torch.equal(cf.twiddle_mul_cuda(y, tw), cf.twiddle_mul_plain(y, tw))
+
+
+@pytest.mark.parametrize("mode", ["complete", "incomplete", "affine"])
+def test_k5_kernel_matches_plain(dev, mode):
+    from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
+
+    n = 256
+    Q = fq()
+    pts = srs_g1_powers(2 * n, 77, dev)
+    p, q = G1(*(c[:n] for c in pts)), G1(*(c[n:] for c in pts))
+    if mode != "affine":
+        z = torch.as_tensor(_rand_fe(6, n, Q.modulus)[::-1].copy(), device=dev)
+        z2 = Q.mul(z, z)
+        p = G1(Q.mul(p.x, z2), Q.mul(p.y, Q.mul(z2, z)), z)
+    p, q = [c.clone() for c in p], [c.clone() for c in q]
+    p[2][:4] = 0  # P at infinity
+    q[2][4:8] = 0  # Q at infinity
+    if mode == "complete":
+        for cp, cq in zip(p, q):
+            cq[8:12] = cp[8:12]  # P = Q
+        q[0][12:16], q[2][12:16] = p[0][12:16], p[2][12:16]
+        q[1][12:16] = Q.neg(p[1][12:16])  # P = -Q
+    got = cc.g1_add_cuda(*p, *q, mode=mode)
+    want = cc.g1_add_plain(*p, *q, mode=mode)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_demo_proof_on_card_matches_golden(dev):
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    srs = Srs.unsafe_setup(demo.K, tau=demo.GOLDEN_TAU)
+    pk, vk = keygen(demo.DemoCircuit(), demo.K, srs)
+    proof = prove(pk, demo.DemoCircuit(), [[demo.A_IN]], srs,
+                  rng=np.random.default_rng(demo.GOLDEN_SEED))
+    assert hashlib.sha256(proof).hexdigest() == demo.GOLDEN_SHA256
+    assert verify(vk, [[demo.A_IN]], proof)

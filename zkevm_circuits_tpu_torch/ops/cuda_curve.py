@@ -1,0 +1,164 @@
+"""Kernel K5: BN254 G1 Jacobian addition over Fq (a = 0), three modes,
+with its plain PyTorch version.
+
+A CUDA tensor goes to the kernel (csrc/curve.cu), a CPU tensor to the
+plain version; there is no other route.  Modes, as in the TPU kernel:
+  complete   (23 muls) no preconditions; P = Q, P = -Q and infinity are
+             resolved by the select ladder of crypto/curve.py::g1_add,
+             whose bytes it reproduces;
+  incomplete (16 muls) operands distinct or at infinity;
+  affine     (6 muls)  z in {0, mont(1)}, operands distinct or at infinity.
+
+The plain version runs the same formulas on 16-bit limbs (cuda_field),
+with the independent products of each step stacked into one multiply.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .cuda_field import (
+    FIELD_FQ,
+    LAUNCHES,
+    _check_rows,
+    _consts,
+    _stream,
+    add_limbs,
+    from_limbs,
+    mont_mul_limbs,
+    sub_limbs,
+    to_limbs,
+)
+
+MODES = {"complete": 0, "incomplete": 1, "affine": 2}
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+def _mul_many(pairs, cs):
+    """Independent products as one stacked multiply."""
+    a = torch.stack([p[0] for p in pairs])
+    b = torch.stack([p[1] for p in pairs])
+    return list(mont_mul_limbs(a, b, cs).unbind(0))
+
+
+def _is_zero(x):
+    return (x == 0).all(dim=-1, keepdim=True)
+
+
+def g1_add_plain(ax, ay, az, bx, by, bz, mode: str = "complete"):
+    """Plain version of K5 over (..., 32) u8 Montgomery Fq coordinates.
+    The complete mode's doubling (crypto/curve.py::g1_double) shares the
+    stacked product steps of the addition."""
+    cs = _consts(FIELD_FQ, ax.device)
+    x1, y1, z1, x2, y2, z2 = (to_limbs(t) for t in (ax, ay, az, bx, by, bz))
+    add = lambda a, b: add_limbs(a, b, cs)  # noqa: E731
+    sub = lambda a, b: sub_limbs(a, b, cs)  # noqa: E731
+    full = mode != "affine"
+    dbl = mode == "complete"
+    p_inf, q_inf = _is_zero(z1), _is_zero(z2)
+    if full:
+        step = [(z1, z1), (z2, z2), (y1, z2), (y2, z1)]
+        if dbl:
+            step += [(x1, x1), (y1, y1), (y1, z1)]
+        res = _mul_many(step, cs)
+        z1z1, z2z2, a1, a2 = res[:4]
+        step = [(x1, z2z2), (x2, z1z1), (a1, z2z2), (a2, z1z1)]
+        if dbl:
+            xsq, ysq, yz = res[4:]
+            xb = add(x1, ysq)
+            e = add(add(xsq, xsq), xsq)
+            step += [(ysq, ysq), (xb, xb), (e, e)]
+        res = _mul_many(step, cs)
+        u1, u2, s1, s2 = res[:4]
+        h, r = sub(u2, u1), sub(s2, s1)
+    else:
+        u1, s1 = x1, y1
+        h, r = sub(x2, x1), sub(y2, y1)
+    h2, rr = add(h, h), add(r, r)
+    step = [(h2, h2), (rr, rr)]
+    if full:
+        zs = add(z1, z2)
+        step.append((zs, zs))
+    res3 = _mul_many(step, cs)
+    i, rr2 = res3[:2]
+    step = [(h, i), (u1, i)]
+    if full:
+        step.append((sub(sub(res3[2], z1z1), z2z2), h))
+    if dbl:
+        c, xb2, f = res[4:]
+        d = sub(sub(xb2, xsq), c)
+        d = add(d, d)
+        dx = sub(f, add(d, d))
+        step.append((e, sub(d, dx)))
+    res4 = _mul_many(step, cs)
+    j, v = res4[:2]
+    x3 = sub(sub(rr2, j), add(v, v))
+    y3a, s1j = _mul_many([(rr, sub(v, x3)), (s1, j)], cs)
+    y3 = sub(y3a, add(s1j, s1j))
+    z3 = res4[2] if full else add(h, h)
+    if dbl:
+        c8 = add(c, c)
+        c8 = add(c8, c8)
+        c8 = add(c8, c8)
+        dy = sub(res4[3], c8)
+        dz = add(yz, yz)
+        h0, r0 = _is_zero(h), _is_zero(r)
+        fin = ~p_inf & ~q_inf
+        same = h0 & r0 & fin
+        oppo = h0 & ~r0 & fin
+        one = to_limbs(torch.as_tensor(_ONE_MONT_FQ, device=ax.device))
+        x3 = torch.where(oppo, one, torch.where(same, dx, x3))
+        y3 = torch.where(oppo, one, torch.where(same, dy, y3))
+        z3 = torch.where(oppo, torch.zeros_like(z3), torch.where(same, dz, z3))
+    x3 = torch.where(q_inf, x1, torch.where(p_inf, x2, x3))
+    y3 = torch.where(q_inf, y1, torch.where(p_inf, y2, y3))
+    z3 = torch.where(q_inf, z1, torch.where(p_inf, z2, z3))
+    return from_limbs(x3), from_limbs(y3), from_limbs(z3)
+
+
+def _one_mont_fq():
+    import numpy as np
+
+    from ..crypto.params import FQ_MODULUS
+
+    one = (1 << 256) % FQ_MODULUS
+    return np.frombuffer(one.to_bytes(32, "little"), np.uint8).copy()
+
+
+_ONE_MONT_FQ = _one_mont_fq()
+
+
+# ---------------------------------------------------------------------------
+# kernel
+# ---------------------------------------------------------------------------
+def g1_add_cuda(ax, ay, az, bx, by, bz, mode: str = "complete"):
+    shape = ax.shape
+    ins = []
+    for name, t in zip(("ax", "ay", "az", "bx", "by", "bz"),
+                       (ax, ay, az, bx, by, bz)):
+        if t.shape != shape:
+            raise ValueError(f"g1_add: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        t = t.contiguous()
+        _check_rows(t, f"g1_add {name}")
+        ins.append(t)
+    outs = [torch.empty(shape, dtype=torch.uint8, device=ax.device)
+            for _ in range(3)]
+    n = ax.numel() // 32
+    build.check(build.lib().zk_g1_add(
+        *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), n,
+        MODES[mode], _stream()), "g1_add")
+    LAUNCHES["g1_add"] += 1
+    return tuple(outs)
+
+
+def g1_add(ax, ay, az, bx, by, bz, mode: str = "complete"):
+    """K5: CUDA tensors launch the kernel, CPU tensors take the plain version."""
+    if mode not in MODES:
+        raise ValueError(f"g1_add: unknown mode {mode!r}")
+    if ax.is_cuda:
+        return g1_add_cuda(ax, ay, az, bx, by, bz, mode)
+    return g1_add_plain(ax, ay, az, bx, by, bz, mode)

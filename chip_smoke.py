@@ -15,8 +15,11 @@ Phases, one line each (the process exits non-zero on any failure):
      wrong instance and a corrupted witness;
   4. the State circuit at DEGREE=16 (service.bench_circuits): SRS, keygen,
      prove, verify, with per-phase seconds;
-  5. a `kernels` JSON line: launches of each kernel during phases 3-4,
-     its check from phase 2, its time, bound and plain time;
+  5. a `kernels` JSON line: each kernel's launches on the State k=16
+     path (and, beside them, on the demo path), its check from phase 2,
+     its time, bound and plain time.  The launch counts are set to 0 just
+     before each of phases 3 and 4 and read just after it; the run fails
+     if a kernel was not launched on either path;
   6. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -32,14 +35,20 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-ALU_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
-# 32-bit integer operations (multiply and add of each 32 x 32 partial
-# product) per Montgomery product: CIOS over 4 x u64 has 36 64-bit products
-# (16 a*b, 16 m*p, 4 m), each four 32-bit multiply-adds.
-OPS_PER_MONT_MUL = 36 * 4 * 2
-OPS_PER_REDC34 = 25 * 4 * 2  # 4 64-bit steps + 1 16-bit step, 5 products each
+# 32-bit integer multiply-adds per second: 64 per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz (H100 SXM boost clock).
+IMAD_PER_S = 64 * 132 * 1.98e9
+# 32 x 32-bit multiply-adds per Montgomery product: CIOS over 4 x u64 has
+# 32 full 64 x 64-bit products (16 a*b, 16 m*p), four partial products
+# each, and 4 low halves (the m's), three each.
+OPS_PER_MONT_MUL = 32 * 4 + 4 * 3
+# wide REDC: 4 64-bit steps and 1 16-bit step, each one low half (m) and
+# 4 full products (m*p)
+OPS_PER_REDC34 = 5 * (3 + 4 * 4)
 MULS_PER_G1_ADD = {"complete": 23, "incomplete": 16, "affine": 6}
 SEED = 20261016
+QUEUE_FILL_CYCLES = 200_000_000  # about 0.1 s of the card's clock
 
 
 def _gpu_line() -> str:
@@ -55,6 +64,9 @@ def _time_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # keep the card busy while the host queues the timed launches, so that
+    # the events time the kernels and not the host's launch rate
+    torch.cuda._sleep(QUEUE_FILL_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -64,7 +76,7 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / IMAD_PER_S
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -283,30 +295,32 @@ def main() -> int:
     log(gpu)
     t0 = time.perf_counter()
     build.lib()
+    nvcc = ("cached" if build.BUILD_SECONDS is None
+            else f"{build.BUILD_SECONDS:.2f} s")
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.BUILD_SECONDS if build.BUILD_SECONDS is not None else 0:.2f} s)")
+        f"(nvcc {nvcc})")
     for line in build.PTXAS_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
 
     rec, fails = check_kernels(dev, log)
-    cf.reset_launches()
-    fails += prove_demo(dev, log)
-    demo_launches = dict(cf.LAUNCHES)
-    fails += prove_state(dev, log, gpu)
-    launches = dict(cf.LAUNCHES)
-    log("[launches] demo k=5 (two proofs): " + json.dumps(demo_launches)
-        + " state k=16 (srs, keygen, proof): "
-        + json.dumps({k: launches[k] - demo_launches[k] for k in launches}))
-    for kid, name, _, _ in KERNELS:
-        if launches[name] == 0:
-            fails.append(f"{kid} {name} was not launched on the main path")
+    paths = {}
+    for path, drive in (("demo_k5", lambda: prove_demo(dev, log)),
+                        ("state_k16", lambda: prove_state(dev, log, gpu))):
+        cf.reset_launches()
+        fails += drive()
+        paths[path] = dict(cf.LAUNCHES)
+        log(f"[launches] {path}: {json.dumps(paths[path])}")
+        for kid, name, _, _ in KERNELS:
+            if paths[path][name] == 0:
+                fails.append(f"{kid} {name} was not launched on {path}")
     kernels = []
     for kid, name, source, replaces in KERNELS:
         r = rec[kid]
         kernels.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": paths["state_k16"][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

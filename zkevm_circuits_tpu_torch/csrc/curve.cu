@@ -13,7 +13,7 @@
 //                      infinity.
 //
 // What bounds it on the H100: one point pair per thread, 192 bytes in and
-// 96 bytes out against 23 Montgomery products (about 3,300 32-bit
+// 96 bytes out against 23 Montgomery products (about 3,200 32-bit
 // multiply-adds) in the complete mode, so it is compute bound on the
 // integer pipes once the batch fills the card; at the MSM's bucket widths
 // (16K points) a launch is short and the host's launch rate dominates.

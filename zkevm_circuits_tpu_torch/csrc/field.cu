@@ -8,7 +8,7 @@
 //    REDC (T * 2^-272 mod p) after every DFT-pass matmul.
 //
 // What bounds them on the H100: each thread owns one element and keeps the
-// whole Montgomery product in registers (36 64x64-bit products, about 144
+// whole Montgomery product in registers (36 64x64-bit products, about 140
 // 32-bit multiply-adds), so per element they move 96 bytes (K1, K2) or 284
 // bytes (K3) through device memory against a few hundred integer
 // instructions: memory bound at the sizes the prover uses.  The design

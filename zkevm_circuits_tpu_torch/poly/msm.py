@@ -5,7 +5,7 @@ zkevm_circuits_tpu/poly/msm.py, the lane-private scan path of `msm()`).
     windows, all processed at once as a batch axis.  Below SMALL_N points
     the windows are nibbles (64 windows of 16 buckets): there the fixed
     256-bucket reduction, not the points, would dominate the work.
-  * Lane-private buckets: points stream in blocks of `lanes`; each
+  * Lane-private buckets: points stream in blocks of `default_lanes(n)`; each
     (lane, window) pair owns a private 256-entry bucket array, so a step is
     one conflict-free gather -> complete add (kernel K5) -> scatter.
   * Several scalar columns against the same points share every step (the
@@ -122,12 +122,12 @@ def _msm_group(points: G1, scalars_u8: torch.Tensor, lanes: int,
     return res
 
 
-def msm_many(points: G1, scalars_u8: torch.Tensor, lanes: int | None = None) -> G1:
+def msm_many(points: G1, scalars_u8: torch.Tensor) -> G1:
     """sum_i scalars[j, i] * points[i] for each column j of a (c, n, 32)
     scalar stack -> (c,) Jacobian points.  Columns run in groups whose
     bucket arrays fit BUCKET_BYTES_BUDGET."""
     c, n = scalars_u8.shape[:2]
-    lanes = lanes if lanes is not None else default_lanes(n)
+    lanes = default_lanes(n)
     wbits = 4 if n < SMALL_N else 8
     per_col = 3 * lanes * (256 // wbits) * (1 << wbits) * 32
     group = max(1, BUCKET_BYTES_BUDGET // per_col)
@@ -136,12 +136,9 @@ def msm_many(points: G1, scalars_u8: torch.Tensor, lanes: int | None = None) -> 
     return G1(*(torch.cat(cs) for cs in zip(*parts)))
 
 
-def msm(points: G1, scalars_u8, lanes: int | None = None,
-        distinct: bool = False) -> G1:
-    """sum_i scalars[i] * points[i] -> single Jacobian point.  `distinct`
-    is accepted for call-site intent, as in the reference."""
-    del distinct
+def msm(points: G1, scalars_u8) -> G1:
+    """sum_i scalars[i] * points[i] -> single Jacobian point."""
     s = scalars_u8 if isinstance(scalars_u8, torch.Tensor) else \
         torch.as_tensor(scalars_u8, device=points.x.device)
-    out = msm_many(points, s[None], lanes)
+    out = msm_many(points, s[None])
     return G1(*(t[0] for t in out))

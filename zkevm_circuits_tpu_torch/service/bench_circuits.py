@@ -58,8 +58,8 @@ def synthetic_rw_workload(n_rows: int) -> list[Rw]:
     return rows[:n_rows]
 
 
-def state_prove_bench(k: int = 18, payload_rows: int | None = None,
-                      tau: int = 0xB_E2C4, device=None, log=print) -> dict:
+def state_prove_bench(k: int = 18, tau: int = 0xB_E2C4, device=None,
+                      log=print) -> dict:
     """SRS + keygen + prove + verify of the State circuit at degree `k`.
 
     Returns {"k", "rows", "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
@@ -68,9 +68,7 @@ def state_prove_bench(k: int = 18, payload_rows: int | None = None,
 
     dev = resolve(device)
     n = 1 << k
-    t = usable_rows(n) - 8
-    payload = payload_rows if payload_rows is not None else t
-    payload = min(payload, t)
+    payload = usable_rows(n) - 8
     rows = synthetic_rw_workload(payload)
 
     def _sync():

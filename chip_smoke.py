@@ -6,21 +6,29 @@
 Phases, one line each (the process exits non-zero on any failure):
   1. the card's name and power limit; the build of the CUDA kernels
      (csrc/*.cu with nvcc for sm_90a) and its time;
-  2. every kernel (K1 mont_mul, K2 twiddle_mul, K3 redc34, K5 g1_add)
-     against its plain PyTorch version on the card, byte for byte, on
-     seeded inputs at the main path's shapes, both timed with CUDA events;
-     the DFT-pass int8 matmul timed beside them;
-  3. the k=5 DemoCircuit proved on the card: its sha256 equals the
-     reference's proof (golden), the verifier accepts it and rejects a
-     wrong instance and a corrupted witness;
-  4. the State circuit at DEGREE=16 (service.bench_circuits): SRS, keygen,
-     prove, verify, with per-phase seconds;
-  5. a `kernels` JSON line: each kernel's launches on the State k=16
-     path (and, beside them, on the demo path), its check from phase 2,
-     its time, bound and plain time.  The launch counts are set to 0 just
-     before each of phases 3 and 4 and read just after it; the run fails
-     if a kernel was not launched on either path;
-  6. the last line: {"ok": true, "device": {...}}.
+  2. every kernel (K1 mont_mul, K2 twiddle_mul, K3 redc34, K5 g1_add,
+     K6 g1_double) against its plain PyTorch version on the card, byte
+     for byte, on seeded inputs at the main path's shapes, both timed with
+     CUDA events; the DFT-pass int8 matmul timed beside them;
+  3. four paths, each with the launch counts set to 0 just before it and
+     read just after it; the run fails if a kernel was not launched on
+     any one of them:
+     demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
+                 proof (golden), the verifier accepts it and rejects a
+                 wrong instance and a corrupted witness;
+     keccak_k9   KeccakCircuit([b"abc"]) at k=9: its sha256 equals the
+                 reference's proof (golden), it verifies, and a flipped
+                 state bit is rejected;
+     state_k16   the State circuit at DEGREE=16 (service.bench_circuits):
+                 SRS, keygen, prove, verify, with per-phase seconds;
+     keccak_k16  the Keccak circuit at DEGREE=16, full width (Z=8, 658
+                 advice columns), 327 permutations of seeded messages:
+                 SRS, keygen, prove, verify, per-phase seconds, peak
+                 device memory;
+  4. a `kernels` JSON line: each kernel's launches on the Keccak k=16
+     path (and, beside them, on every path), its check from phase 2, its
+     time, bound and plain time;
+  5. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ OPS_PER_MONT_MUL = 32 * 4 + 4 * 3
 # 4 full products (m*p)
 OPS_PER_REDC34 = 5 * (3 + 4 * 4)
 MULS_PER_G1_ADD = {"complete": 23, "incomplete": 16, "affine": 6}
+MULS_PER_G1_DOUBLE = 7
 SEED = 20261016
 QUEUE_FILL_CYCLES = 200_000_000  # about 0.1 s of the card's clock
 
@@ -218,11 +227,37 @@ def check_kernels(dev, log) -> tuple[dict, list]:
             rec["K5"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                              bound_by=by,
                              max_abs_err=max(_max_err(g, w) for g, w in zip(got, want)))
+
+    # K6 at n = 2^16 (rows 0-15 at infinity as (1, 1, 0), rows 16-31 with
+    # z = 0 and random x, y) and at the window Horner's (10,) shape (rows
+    # 28-37: four with z = 0)
+    dp = [c.clone() for c in p_j]
+    dp[0][:16] = Q.ones_mont((16,), dev)
+    dp[1][:16] = Q.ones_mont((16,), dev)
+    dp[2][:32] = 0
+    for label, pts_ in ((f"n={n}", dp),
+                        ("n=10", [c[28:38].contiguous() for c in dp])):
+        got = cc.g1_double_cuda(*pts_)
+        want = cc.g1_double_plain(*pts_)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        ms = _time_ms(lambda: cc.g1_double_cuda(*pts_), 50)
+        plain_ms = _time_ms(lambda: cc.g1_double_plain(*pts_), 3)
+        log(f"[kernels] K6 g1_double {label}: match={ok} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.3f} ms")
+        if not ok:
+            fails.append(f"K6 {label} mismatch")
+        if label == f"n={n}":
+            bound, by = _bound_ms(192 * n, MULS_PER_G1_DOUBLE * OPS_PER_MONT_MUL * n)
+            rec["K6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by,
+                             max_abs_err=max(_max_err(g, w) for g, w in zip(got, want)))
+        else:
+            rec["K6"]["horner_ms"], rec["K6"]["horner_plain_ms"] = ms, plain_ms
     return rec, fails
 
 
 def prove_demo(dev, log) -> list:
-    """Phase 3: the k=5 DemoCircuit proof on the card against the golden."""
+    """The k=5 DemoCircuit proof on the card against the golden."""
     from zkevm_circuits_tpu_torch.plonk import demo
     from zkevm_circuits_tpu_torch.plonk.keygen import keygen
     from zkevm_circuits_tpu_torch.plonk.prover import prove
@@ -255,7 +290,7 @@ def prove_demo(dev, log) -> list:
 
 
 def prove_state(dev, log, gpu: str) -> list:
-    """Phase 4: the State circuit at DEGREE=16."""
+    """The State circuit at DEGREE=16."""
     from zkevm_circuits_tpu_torch.service.bench_circuits import state_prove_bench
 
     r = state_prove_bench(16, device=dev, log=lambda m: None)
@@ -270,6 +305,121 @@ def prove_state(dev, log, gpu: str) -> list:
     return [] if r["ok"] else ["state k=16 proof did not verify"]
 
 
+def _flip_state_bit(circuit_cls):
+    """`circuit_cls` with one state bit flipped in the phase-0 witness:
+    round block 5, lane (2, 3), z = 17 (tests/test_keccak_circuit.py::
+    test_keccak_f_catches_bit_flip)."""
+    from zkevm_circuits_tpu_torch.crypto.field import fr
+
+    F = fr()
+
+    class Corrupt(circuit_cls):
+        def synthesize(self, phase, n, challenges, instances):
+            cols = super().synthesize(phase, n, challenges, instances)
+            if phase == 0:
+                z = 17
+                col = self.c_a[2][3][z % self.z]
+                arr = np.array(cols[col])
+                row = 5 * self.rpb + z // self.z
+                cur = int(np.any(arr[row]))
+                arr[row] = F.from_int((1 - cur) * F.R % F.modulus)
+                cols[col] = arr
+            return cols
+
+    return Corrupt
+
+
+def prove_keccak_k9(dev, log) -> list:
+    """KeccakCircuit([b"abc"]) at k=9 on the card against the golden."""
+    from zkevm_circuits_tpu_torch.circuits.keccak import KeccakCircuit
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    fails = []
+    k, msgs = demo.KECCAK_GOLDEN_K, list(demo.KECCAK_GOLDEN_MESSAGES)
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=demo.KECCAK_GOLDEN_TAU, device=dev)
+    pk, vk = keygen(KeccakCircuit(msgs), k, srs, device=dev)
+    t1 = time.perf_counter()
+    proof = prove(pk, KeccakCircuit(msgs), [], srs,
+                  rng=np.random.default_rng(demo.KECCAK_GOLDEN_SEED), device=dev)
+    t2 = time.perf_counter()
+    digest = hashlib.sha256(proof).hexdigest()
+    golden = (digest == demo.KECCAK_GOLDEN_SHA256
+              and len(proof) == demo.KECCAK_GOLDEN_LEN)
+    ok = verify(vk, [], proof)
+    bad = prove(pk, _flip_state_bit(KeccakCircuit)(msgs), [], srs,
+                rng=np.random.default_rng(1), device=dev)
+    corrupt = verify(vk, [], bad)
+    log(f"[keccak k=9] setup+keygen {t1 - t0:.2f} s prove {t2 - t1:.2f} s "
+        f"sha256={digest} golden={golden} verify={ok} bit_flip={corrupt}")
+    if not golden:
+        fails.append("keccak k=9 proof differs from the golden")
+    if not ok or corrupt:
+        fails.append("keccak k=9 verifier verdicts wrong")
+    return fails
+
+
+KECCAK_EDGE_LENGTHS = (0, 135, 136, 271, 272)  # 1, 1, 2, 2, 3 absorb blocks
+
+
+def keccak_messages(seed: int, max_perms: int) -> list[bytes]:
+    """The edge lengths, then seeded random lengths of 0-300 bytes while
+    the permutations fit; the last ones shrink to one block to fill
+    `max_perms` exactly."""
+    rng = np.random.default_rng(seed)
+    msgs = [rng.bytes(n) for n in KECCAK_EDGE_LENGTHS]
+    perms = sum(n // 136 + 1 for n in KECCAK_EDGE_LENGTHS)
+    while perms < max_perms:
+        n = int(rng.integers(0, 301))
+        if perms + n // 136 + 1 > max_perms:
+            n = int(rng.integers(0, 136))
+        msgs.append(rng.bytes(n))
+        perms += n // 136 + 1
+    return msgs
+
+
+def prove_keccak_k16(dev, log, gpu: str) -> list:
+    """The Keccak circuit at DEGREE=16, full width."""
+    from zkevm_circuits_tpu_torch.circuits.keccak import ROWS_PER_PERM, KeccakCircuit
+    from zkevm_circuits_tpu_torch.plonk.circuit import usable_rows
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    k = 16
+    msgs = keccak_messages(SEED, usable_rows(1 << k) // ROWS_PER_PERM)
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=0xBE2C4, device=dev)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    kphases, phases = {}, {}
+    pk, vk = keygen(KeccakCircuit(msgs), k, srs, device=dev, timings=kphases)
+    t2 = time.perf_counter()
+    circ = KeccakCircuit(msgs)
+    proof = prove(pk, circ, [], srs, rng=np.random.default_rng(7), device=dev,
+                  timings=phases)
+    t3 = time.perf_counter()
+    ok = verify(vk, [], proof)
+    t4 = time.perf_counter()
+    cs = pk.vk.cs
+    log(f"[keccak k=16] card={gpu!r} messages={len(msgs)} "
+        f"permutations={len(circ.states)} advice={cs.num_advice} "
+        f"gate_polys={sum(len(g.polys) for g in cs.gates)} k_ext={pk.k_ext} "
+        f"srs {t1 - t0:.2f} s keygen {t2 - t1:.2f} s prove {t3 - t2:.2f} s "
+        f"verify {t4 - t3:.2f} s ok={ok} proof_bytes={len(proof)} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+    log(f"[keccak k=16] prove phases (s, card={gpu!r}): "
+        f"{json.dumps({k_: round(v, 3) for k_, v in phases.items()})}")
+    log(f"[keccak k=16] keygen phases (s, card={gpu!r}): "
+        f"{json.dumps({k_: round(v, 3) for k_, v in kphases.items()})}")
+    return [] if ok else ["keccak k=16 proof did not verify"]
+
+
 KERNELS = [
     ("K1", "mont_mul", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:178"),
@@ -279,6 +429,8 @@ KERNELS = [
      "zkevm_circuits_tpu/ops/pallas_field.py:273"),
     ("K5", "g1_add", "zkevm_circuits_tpu_torch/csrc/curve.cu",
      "zkevm_circuits_tpu/ops/pallas_curve.py:336"),
+    ("K6", "g1_double", "zkevm_circuits_tpu_torch/csrc/curve.cu",
+     "zkevm_circuits_tpu/ops/pallas_curve.py:359"),
 ]
 
 
@@ -300,13 +452,16 @@ def main() -> int:
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {nvcc})")
     for line in build.PTXAS_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
 
     rec, fails = check_kernels(dev, log)
     paths = {}
     for path, drive in (("demo_k5", lambda: prove_demo(dev, log)),
-                        ("state_k16", lambda: prove_state(dev, log, gpu))):
+                        ("keccak_k9", lambda: prove_keccak_k9(dev, log)),
+                        ("state_k16", lambda: prove_state(dev, log, gpu)),
+                        ("keccak_k16", lambda: prove_keccak_k16(dev, log, gpu))):
+        torch.cuda.reset_peak_memory_stats(dev)
         cf.reset_launches()
         fails += drive()
         paths[path] = dict(cf.LAUNCHES)
@@ -319,7 +474,7 @@ def main() -> int:
         r = rec[kid]
         kernels.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths["state_k16"][name],
+            "replaces": replaces, "launches": paths["keccak_k16"][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

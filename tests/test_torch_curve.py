@@ -1,6 +1,6 @@
 """Port G1 arithmetic (zkevm_circuits_tpu_torch.crypto.curve and the
-plain version of kernel K5) against the JAX package and the host-int
-oracle, exact bytes.
+plain versions of kernels K5 and K6) against the JAX package and the
+host-int oracle, exact bytes.
 """
 
 import jax
@@ -107,6 +107,35 @@ def test_g1_double_matches_reference():
     got = tc.g1_double(_to_t(p))
     assert _same(_jdbl(p), got)
     assert _affine(got) == [jc.host_g1_add(x, x) for x in a] + [None]
+
+
+def _double_case(rows):
+    """`rows` seeded Jacobian points, rows 3 and 7 at infinity: (1, 1, 0)
+    and a random (x, y) with z = 0."""
+    pj = _jacobian(_affine_points(10, rows), 11)
+    pj[3] = (1, 1, 0)
+    pj[7] = (pj[7][0], pj[7][1], 0)
+    return _jac_g1(pj)
+
+
+def test_k6_plain_matches_reference_and_fused_kernel():
+    from zkevm_circuits_tpu.ops.pallas_curve import g1_double_fused
+
+    p = _double_case(16)  # the fused kernel takes 8-row multiples below 128
+    got = tc.G1(*cc.g1_double_plain(*_to_t(p)))
+    assert _same(jc.g1_double(p), got)
+    assert _same(g1_double_fused(*p, interpret=True), got)
+    assert got.z[3].eq(0).all() and got.z[7].eq(0).all()
+
+
+def test_g1_double_routes_cpu_to_plain():
+    from zkevm_circuits_tpu_torch.ops import cuda_field as cf
+
+    p = _double_case(ROWS)
+    cf.reset_launches()
+    got = tc.g1_double(_to_t(p))
+    assert cf.LAUNCHES["g1_double"] == 0
+    assert _same(_jdbl(p), got)
 
 
 def test_g1_scalar_mul_matches_host():

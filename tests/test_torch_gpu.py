@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, byte for byte, and the k=5 golden proof on the card.
+version on the card, byte for byte, and the k=5 demo and k=9 Keccak
+golden proofs on the card.
 
 They skip without a card.  This file imports no JAX (the card's machine
 has none); run it there with
@@ -85,6 +86,55 @@ def test_k5_kernel_matches_plain(dev, mode):
     got = cc.g1_add_cuda(*p, *q, mode=mode)
     want = cc.g1_add_plain(*p, *q, mode=mode)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k6_kernel_matches_plain(dev):
+    from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
+
+    n = 300
+    Q = fq()
+    p = srs_g1_powers(n, 78, dev)
+    z = torch.as_tensor(_rand_fe(7, n, Q.modulus)[::-1].copy(), device=dev)
+    z2 = Q.mul(z, z)
+    p = [Q.mul(p.x, z2), Q.mul(p.y, Q.mul(z2, z)), z]
+    p[0][:4], p[1][:4] = Q.ones_mont((4,), dev), Q.ones_mont((4,), dev)
+    p[2][:8] = 0  # infinity: (1, 1, 0) and random (x, y, 0)
+    got = cc.g1_double_cuda(*p)
+    want = cc.g1_double_plain(*p)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[2][:8].eq(0).all()
+    got10 = cc.g1_double_cuda(*(c[:10] for c in p))
+    assert all(torch.equal(g, w[:10]) for g, w in zip(got10, want))
+
+
+def test_g1_double_on_card_is_one_k6_launch(dev):
+    from zkevm_circuits_tpu_torch.crypto.curve import g1_double, g1_infinity
+
+    p = g1_infinity((10,), dev)
+    before = dict(cf.LAUNCHES)
+    out = g1_double(p)
+    assert cf.LAUNCHES["g1_double"] == before["g1_double"] + 1
+    assert {k: v for k, v in cf.LAUNCHES.items() if k != "g1_double"} == \
+        {k: v for k, v in before.items() if k != "g1_double"}
+    assert out.z.eq(0).all()
+
+
+def test_keccak_k9_proof_on_card_matches_golden(dev):
+    from zkevm_circuits_tpu_torch.circuits.keccak import KeccakCircuit
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    k, msgs = demo.KECCAK_GOLDEN_K, list(demo.KECCAK_GOLDEN_MESSAGES)
+    srs = Srs.unsafe_setup(k, tau=demo.KECCAK_GOLDEN_TAU)
+    pk, vk = keygen(KeccakCircuit(msgs), k, srs)
+    proof = prove(pk, KeccakCircuit(msgs), [], srs,
+                  rng=np.random.default_rng(demo.KECCAK_GOLDEN_SEED))
+    assert len(proof) == demo.KECCAK_GOLDEN_LEN
+    assert hashlib.sha256(proof).hexdigest() == demo.KECCAK_GOLDEN_SHA256
+    assert verify(vk, [], proof)
 
 
 def test_demo_proof_on_card_matches_golden(dev):

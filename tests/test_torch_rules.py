@@ -1,8 +1,8 @@
 """Rules of the port, checked statically: no file of
 zkevm_circuits_tpu_torch/ and not chip_smoke.py imports JAX or the JAX
-package; every module imports without a card or a compiler; the kernel
-build directory is git-ignored; each kernel source names the TPU kernel
-it replaces."""
+package, or loads the JAX tree's native library; every module imports
+without a card or a compiler; the kernel build directory is git-ignored;
+each kernel source names the TPU kernel it replaces."""
 
 import ast
 import importlib
@@ -32,6 +32,12 @@ def _imports(path: pathlib.Path) -> set[str]:
 def test_no_jax_imports(path):
     bad = [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_native_library(path):
+    text = path.read_text()
+    assert "libzkevm_native" not in text and "native/" not in text, path
 
 
 @pytest.mark.parametrize(

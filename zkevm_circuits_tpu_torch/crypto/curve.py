@@ -2,9 +2,9 @@
 
 Port of zkevm_circuits_tpu/crypto/curve.py.  Points are Jacobian
 (X, Y, Z) triples of Montgomery Fq elements, each (..., 32) uint8;
-infinity is Z == 0.  `g1_add` is kernel K5 on CUDA tensors (its plain
-version on CPU tensors); `g1_double` is plain tensor code over Fq.mul,
-i.e. over kernel K1.  The host `host_*` / `_hj_*` helpers are pure Python.
+infinity is Z == 0.  `g1_add` is kernel K5 and `g1_double` kernel K6 on
+CUDA tensors (their plain versions on CPU tensors), one launch per call.
+The host `host_*` / `_hj_*` helpers are pure Python.
 """
 
 from __future__ import annotations
@@ -71,28 +71,9 @@ def g1_to_affine_ints(p: G1) -> list:
     return [None if i else (x, y) for i, x, y in zip(inf, xs, ys)]
 
 
-def _mulstack(lhs: list, rhs: list):
-    """Independent products as one batched multiply (one K1 launch)."""
-    out = F.mul(torch.stack(lhs), torch.stack(rhs))
-    return list(out.unbind(0))
-
-
 def g1_double(p: G1) -> G1:
-    """2P for a=0 curves.  Correct for infinity (Z=0 stays Z=0)."""
-    a, b, yz = _mulstack([p.x, p.y, p.y], [p.x, p.y, p.z])  # X^2, Y^2, YZ
-    xb = F.add(p.x, b)
-    e = F.add(F.add(a, a), a)  # 3X^2
-    c, xb2, f = _mulstack([b, xb, e], [b, xb, e])  # Y^4, (X+B)^2, E^2
-    d = F.sub(F.sub(xb2, a), c)
-    d = F.add(d, d)
-    x3 = F.sub(f, F.add(d, d))
-    c8 = F.add(c, c)
-    c8 = F.add(c8, c8)
-    c8 = F.add(c8, c8)
-    (y3a,) = _mulstack([e], [F.sub(d, x3)])
-    y3 = F.sub(y3a, c8)
-    z3 = F.add(yz, yz)
-    return G1(x3, y3, z3)
+    """2P for a=0 curves (kernel K6).  Correct for infinity (Z=0 stays Z=0)."""
+    return G1(*cuda_curve.g1_double(p.x, p.y, p.z))
 
 
 def g1_add(p: G1, q: G1, mode: str = "complete") -> G1:

@@ -1,6 +1,7 @@
-// K5: BN254 G1 Jacobian addition over Fq (a = 0), three modes.
+// K5: BN254 G1 Jacobian addition over Fq (a = 0), three modes, and
+// K6: BN254 G1 Jacobian doubling over Fq (a = 0).
 //
-// Replaces zkevm_circuits_tpu/ops/pallas_curve.py::g1_add_fused
+// K5 replaces zkevm_circuits_tpu/ops/pallas_curve.py::g1_add_fused
 // (_add_kernel / _add_kernel_incomplete / _add_kernel_affine).
 //
 //   mode 0, complete   (23 muls): P = Q, P = -Q and infinity handled
@@ -12,11 +13,18 @@
 //   mode 2, affine     (6 muls): z in {0, mont(1)}, operands distinct or
 //                      infinity.
 //
-// What bounds it on the H100: one point pair per thread, 192 bytes in and
-// 96 bytes out against 23 Montgomery products (about 3,200 32-bit
-// multiply-adds) in the complete mode, so it is compute bound on the
-// integer pipes once the batch fills the card; at the MSM's bucket widths
-// (16K points) a launch is short and the host's launch rate dominates.
+// K6 replaces zkevm_circuits_tpu/ops/pallas_curve.py::g1_double_fused
+// (_dbl_kernel): dbl-2009-l, 7 muls, the bytes of crypto/curve.py::
+// g1_double; infinity (z = 0) stays z = 0, with x3, y3 as the formula
+// gives them.
+//
+// What bounds them on the H100: one point (pair) per thread.  K5 complete
+// reads 192 bytes and writes 96 against 23 Montgomery products (about
+// 3,200 32-bit multiply-adds), so it is compute bound on the integer pipes
+// once the batch fills the card; K6 reads 96 and writes 96 bytes against 7
+// products (about 1,000 multiply-adds), also bound by operations.  At the
+// MSM's shapes (16K-point bucket steps for K5, the window Horner's 10
+// points for K6) a launch is short and the host's launch rate dominates.
 // The design keeps every intermediate of the add and of the doubling in
 // registers (the TPU kernel's (B, 63) digit planes become 4-limb values)
 // and keeps the TPU kernel's branch-free select ladder: every row computes
@@ -182,6 +190,20 @@ __global__ void g1_add_kernel(const uint64_t *__restrict__ ax,
   fe_store(oz, i, o.z);
 }
 
+__global__ void g1_double_kernel(const uint64_t *__restrict__ ax,
+                                 const uint64_t *__restrict__ ay,
+                                 const uint64_t *__restrict__ az,
+                                 uint64_t *__restrict__ ox,
+                                 uint64_t *__restrict__ oy,
+                                 uint64_t *__restrict__ oz, int64_t n) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt o = dbl(Pt{fe_load(ax, i), fe_load(ay, i), fe_load(az, i)});
+  fe_store(ox, i, o.x);
+  fe_store(oy, i, o.y);
+  fe_store(oz, i, o.z);
+}
+
 }  // namespace
 
 extern "C" int zk_g1_add(const void *ax, const void *ay, const void *az,
@@ -205,5 +227,17 @@ extern "C" int zk_g1_add(const void *ax, const void *ay, const void *az,
   else
     g1_add_kernel<2><<<blocks, THREADS, 0, s>>>(ZK_ARGS);
 #undef ZK_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int zk_g1_double(const void *ax, const void *ay, const void *az,
+                            void *ox, void *oy, void *oz, int64_t n,
+                            void *stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
+  g1_double_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t *>(ax), static_cast<const uint64_t *>(ay),
+      static_cast<const uint64_t *>(az), static_cast<uint64_t *>(ox),
+      static_cast<uint64_t *>(oy), static_cast<uint64_t *>(oz), n);
   return static_cast<int>(cudaGetLastError());
 }

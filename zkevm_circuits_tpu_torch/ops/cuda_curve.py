@@ -1,15 +1,17 @@
-"""Kernel K5: BN254 G1 Jacobian addition over Fq (a = 0), three modes,
-with its plain PyTorch version.
+"""Kernels K5 (BN254 G1 Jacobian addition over Fq, a = 0, three modes)
+and K6 (G1 Jacobian doubling), with their plain PyTorch versions.
 
 A CUDA tensor goes to the kernel (csrc/curve.cu), a CPU tensor to the
-plain version; there is no other route.  Modes, as in the TPU kernel:
+plain version; there is no other route.  K5's modes, as in the TPU kernel:
   complete   (23 muls) no preconditions; P = Q, P = -Q and infinity are
              resolved by the select ladder of crypto/curve.py::g1_add,
              whose bytes it reproduces;
   incomplete (16 muls) operands distinct or at infinity;
   affine     (6 muls)  z in {0, mont(1)}, operands distinct or at infinity.
 
-The plain version runs the same formulas on 16-bit limbs (cuda_field),
+K6 is dbl-2009-l (7 muls); infinity (z = 0) stays z = 0.
+
+The plain versions run the same formulas on 16-bit limbs (cuda_field),
 with the independent products of each step stacked into one multiply.
 """
 
@@ -119,6 +121,29 @@ def g1_add_plain(ax, ay, az, bx, by, bz, mode: str = "complete"):
     return from_limbs(x3), from_limbs(y3), from_limbs(z3)
 
 
+def g1_double_plain(ax, ay, az):
+    """Plain version of K6 over (..., 32) u8 Montgomery Fq coordinates:
+    2P for a = 0 (dbl-2009-l); z3 = 2 Y Z, so infinity stays infinity."""
+    cs = _consts(FIELD_FQ, ax.device)
+    x, y, z = (to_limbs(t) for t in (ax, ay, az))
+    add = lambda a, b: add_limbs(a, b, cs)  # noqa: E731
+    sub = lambda a, b: sub_limbs(a, b, cs)  # noqa: E731
+    a, b, yz = _mul_many([(x, x), (y, y), (y, z)], cs)  # X^2, Y^2, YZ
+    xb = add(x, b)
+    e = add(add(a, a), a)  # 3X^2
+    c, xb2, f = _mul_many([(b, b), (xb, xb), (e, e)], cs)  # Y^4, (X+B)^2, E^2
+    d = sub(sub(xb2, a), c)
+    d = add(d, d)
+    x3 = sub(f, add(d, d))
+    c8 = add(c, c)
+    c8 = add(c8, c8)
+    c8 = add(c8, c8)
+    (y3a,) = _mul_many([(e, sub(d, x3))], cs)
+    y3 = sub(y3a, c8)
+    z3 = add(yz, yz)
+    return from_limbs(x3), from_limbs(y3), from_limbs(z3)
+
+
 def _one_mont_fq():
     import numpy as np
 
@@ -134,23 +159,32 @@ _ONE_MONT_FQ = _one_mont_fq()
 # ---------------------------------------------------------------------------
 # kernel
 # ---------------------------------------------------------------------------
-def g1_add_cuda(ax, ay, az, bx, by, bz, mode: str = "complete"):
-    shape = ax.shape
-    ins = []
-    for name, t in zip(("ax", "ay", "az", "bx", "by", "bz"),
-                       (ax, ay, az, bx, by, bz)):
+def _coords_in(op: str, names, coords) -> list:
+    """Same-shape (..., 32) u8 CUDA coordinates, made contiguous."""
+    shape = coords[0].shape
+    out = []
+    for name, t in zip(names, coords):
         if t.shape != shape:
-            raise ValueError(f"g1_add: {name} has shape {tuple(t.shape)}, "
+            raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
         t = t.contiguous()
-        _check_rows(t, f"g1_add {name}")
-        ins.append(t)
-    outs = [torch.empty(shape, dtype=torch.uint8, device=ax.device)
+        _check_rows(t, f"{op} {name}")
+        out.append(t)
+    return out
+
+
+def _coords_out(like: torch.Tensor) -> list:
+    return [torch.empty(like.shape, dtype=torch.uint8, device=like.device)
             for _ in range(3)]
-    n = ax.numel() // 32
+
+
+def g1_add_cuda(ax, ay, az, bx, by, bz, mode: str = "complete"):
+    ins = _coords_in("g1_add", ("ax", "ay", "az", "bx", "by", "bz"),
+                     (ax, ay, az, bx, by, bz))
+    outs = _coords_out(ax)
     build.check(build.lib().zk_g1_add(
-        *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), n,
-        MODES[mode], _stream()), "g1_add")
+        *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
+        ax.numel() // 32, MODES[mode], _stream()), "g1_add")
     LAUNCHES["g1_add"] += 1
     return tuple(outs)
 
@@ -162,3 +196,20 @@ def g1_add(ax, ay, az, bx, by, bz, mode: str = "complete"):
     if ax.is_cuda:
         return g1_add_cuda(ax, ay, az, bx, by, bz, mode)
     return g1_add_plain(ax, ay, az, bx, by, bz, mode)
+
+
+def g1_double_cuda(ax, ay, az):
+    ins = _coords_in("g1_double", ("ax", "ay", "az"), (ax, ay, az))
+    outs = _coords_out(ax)
+    build.check(build.lib().zk_g1_double(
+        *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
+        ax.numel() // 32, _stream()), "g1_double")
+    LAUNCHES["g1_double"] += 1
+    return tuple(outs)
+
+
+def g1_double(ax, ay, az):
+    """K6: CUDA tensors launch the kernel, CPU tensors take the plain version."""
+    if ax.is_cuda:
+        return g1_double_cuda(ax, ay, az)
+    return g1_double_plain(ax, ay, az)

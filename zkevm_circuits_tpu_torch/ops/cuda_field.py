@@ -30,7 +30,8 @@ MODULI = {FIELD_FR: FR_MODULUS, FIELD_FQ: FQ_MODULUS}
 RED_LIMBS = 17  # the NTT's wide REDC divides by 2^272 = 2^(16 * 17)
 
 # kernel launches, counted where each wrapper launches its kernel
-LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0, "g1_add": 0}
+LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0, "g1_add": 0,
+            "g1_double": 0}
 
 
 def reset_launches() -> None:

@@ -29,6 +29,17 @@ GOLDEN_SEED = 7
 GOLDEN_SHA256 = "962e1792f8246ca5d9df549779d984e975344954eeb27b88606cb7f1706c9e36"
 GOLDEN_LEN = 1792
 
+# sha256 of the reference's proof of circuits/keccak.py::KeccakCircuit
+# (Z_PER_ROW = 8) over KECCAK_GOLDEN_MESSAGES at k = 9 with
+# Srs.unsafe_setup(9, tau=0xBE2C4), no instances and
+# rng=np.random.default_rng(7); the port's proof must equal it.
+KECCAK_GOLDEN_K = 9
+KECCAK_GOLDEN_TAU = 0xBE2C4
+KECCAK_GOLDEN_SEED = 7
+KECCAK_GOLDEN_MESSAGES = (b"abc",)
+KECCAK_GOLDEN_SHA256 = "61910750f7403e117d53a961c58cd2b9a42689ddf05b23d8089cf89e39c4aa5a"
+KECCAK_GOLDEN_LEN = 139360
+
 
 def _mont(vals):
     return F.from_ints([v % R * F.R % R for v in vals])

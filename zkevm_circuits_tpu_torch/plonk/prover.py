@@ -34,6 +34,10 @@ F = fr()
 
 QUOTIENT_CHUNK = 1 << 16  # rows of the extended coset per quotient pass
 GATE_BATCH = 48  # gate polys per y-folded constraint group
+# columns per extended-coset transform: the transform's scratch is a few
+# copies of its input, so wide circuits (Keccak: 658 advice columns, 11 GB
+# of extended advice at k=16) transform in batches into one output
+EXT_BATCH = 64
 
 
 def _host(a) -> np.ndarray:
@@ -335,6 +339,11 @@ def prove(
 
     # ---- quotient on the extended coset ------------------------------------------------
     def to_ext(coeffs):
+        if coeffs.ndim == 3 and coeffs.shape[0] > EXT_BATCH:
+            out = coeffs.new_empty(coeffs.shape[0], n_ext, 32)
+            for s_ in range(0, coeffs.shape[0], EXT_BATCH):
+                out[s_:s_ + EXT_BATCH] = to_ext(coeffs[s_:s_ + EXT_BATCH])
+            return out
         pad = coeffs.new_zeros(*coeffs.shape[:-2], n_ext - n, 32)
         return coset_ntt(torch.cat([coeffs, pad], dim=-2), k_ext)
 

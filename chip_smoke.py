@@ -6,13 +6,15 @@
 Phases, one line each (the process exits non-zero on any failure):
   1. the card's name and power limit; the build of the CUDA kernels
      (csrc/*.cu with nvcc for sm_90a) and its time;
-  2. every kernel (K1 mont_mul, K2 twiddle_mul, K3 redc34, K5 g1_add,
-     K6 g1_double) against its plain PyTorch version on the card, byte
-     for byte, on seeded inputs at the main path's shapes, both timed with
-     CUDA events; the DFT-pass int8 matmul timed beside them;
-  3. four paths, each with the launch counts set to 0 just before it and
-     read just after it; the run fails if a kernel was not launched on
-     any one of them:
+  2. every kernel (K1 mont_mul, K2 twiddle_mul, K3 redc34, K4
+     butterfly_stage, K5 g1_add, K6 g1_double) against its plain PyTorch
+     version on the card, byte for byte, on seeded inputs at the main
+     path's shapes, both timed with CUDA events; the DFT-pass int8 matmul
+     timed beside them;
+  3. six paths, each with the launch counts set to 0 just before it and
+     read just after it; the run fails if a kernel the path names was not
+     launched on it (K4 on the two mesh paths, every other kernel on all
+     six):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -25,9 +27,16 @@ Phases, one line each (the process exits non-zero on any failure):
                  advice columns), 327 permutations of seeded messages:
                  SRS, keygen, prove, verify, per-phase seconds, peak
                  device memory;
+     then, on a torch.distributed NCCL group of one rank (the sharded
+     prover's D = 1 route: every iNTT at k and coset transform at k_ext is
+     the radix-2 ladder, one K4 launch a stage):
+     mesh_demo_k5    demo_k5 through prove(mesh=group): the same golden
+                     and verdicts;
+     mesh_state_k16  state_prove_bench(16, mesh=group): its proof's sha256
+                     equals state_k16's, and it verifies;
   4. a `kernels` JSON line: each kernel's launches on the Keccak k=16
-     path (and, beside them, on every path), its check from phase 2, its
-     time, bound and plain time;
+     path (K4: on mesh_state_k16) and, beside them, on every path, its
+     check from phase 2, its time, bound and plain time;
   5. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -41,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # 32-bit integer multiply-adds per second: 64 per clock per SM (CUDA C++
@@ -110,6 +120,7 @@ def check_kernels(dev, log) -> tuple[dict, list]:
     from zkevm_circuits_tpu_torch.ops import cuda_curve as cc
     from zkevm_circuits_tpu_torch.ops import cuda_field as cf
     from zkevm_circuits_tpu_torch.poly import ntt_mxu
+    from zkevm_circuits_tpu_torch.poly.domain import domain
     from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
 
     rng = np.random.default_rng(SEED)
@@ -184,6 +195,53 @@ def check_kernels(dev, log) -> tuple[dict, list]:
     if not ok:
         fails.append("K2 mismatch")
 
+    # K4, stage form (what the mesh NTT launches): stages 1, 10 and 19 of
+    # one k=19 column (2^18 butterflies), stage 10 timed (a 512-row table);
+    # the stage 10 launch over the prover's 64-column batch, kernel only;
+    # the TPU kernel's row form at 2^20 rows
+    x = torch.as_tensor(_rand_fe(rng, 1 << k, F.modulus), device=dev)
+    tws = [torch.as_tensor(t, device=dev) for t in domain(k).stage_twiddles]
+    pairs = 1 << (k - 1)
+    for st in (1, 10, 19):
+        got = cf.dit_stage_cuda(x, tws[st - 1], st)
+        want = cf.dit_stage_plain(x, tws[st - 1], st)
+        ok = torch.equal(got, want)
+        log(f"[kernels] K4 dit_stage k={k} stage {st}: match={ok}")
+        if not ok:
+            fails.append(f"K4 stage {st} mismatch")
+        if st == 10:
+            err = _max_err(got, want)
+    tw10 = tws[9]
+    ms = _time_ms(lambda: cf.dit_stage_cuda(x, tw10, 10), 50)
+    plain_ms = _time_ms(lambda: cf.dit_stage_plain(x, tw10, 10), 3)
+    bound, by = _bound_ms(128 * pairs + tw10.numel(), OPS_PER_MONT_MUL * pairs)
+    rec["K4"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     max_abs_err=err)
+    log(f"[kernels] K4 dit_stage k={k} stage 10 ({pairs} butterflies): "
+        f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound:.4f} ms")
+    xb = x.expand(64, -1, -1).contiguous()
+    ms = _time_ms(lambda: cf.dit_stage_cuda(xb, tw10, 10), 10)
+    bound, _ = _bound_ms(64 * 128 * pairs + tw10.numel(), 64 * OPS_PER_MONT_MUL * pairs)
+    rec["K4"]["batch64"] = dict(ms=ms, bound_ms=bound)
+    log(f"[kernels] K4 dit_stage 64 columns k={k} stage 10: kernel {ms:.4f} ms "
+        f"bound {bound:.4f} ms")
+    del xb
+    n = 1 << 20
+    lo, hi, tw = (torch.as_tensor(_rand_fe(rng, n, F.modulus), device=dev)
+                  for _ in range(3))
+    got = cf.butterfly_stage_cuda(lo, hi, tw)
+    want = cf.butterfly_stage_plain(lo, hi, tw)
+    ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    ms = _time_ms(lambda: cf.butterfly_stage_cuda(lo, hi, tw), 50)
+    plain_ms = _time_ms(lambda: cf.butterfly_stage_plain(lo, hi, tw), 3)
+    bound, by = _bound_ms(160 * n, OPS_PER_MONT_MUL * n)
+    rec["K4"]["rows"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             max_abs_err=max(_max_err(g, w) for g, w in zip(got, want)))
+    log(f"[kernels] K4 butterfly_stage rows={n}: match={ok} kernel {ms:.4f} ms "
+        f"plain {plain_ms:.3f} ms bound {bound:.4f} ms")
+    if not ok:
+        fails.append("K4 row form mismatch")
+
     # K5 at n = 2^16 points, three modes
     n = 1 << 16
     Q = fq()
@@ -256,8 +314,9 @@ def check_kernels(dev, log) -> tuple[dict, list]:
     return rec, fails
 
 
-def prove_demo(dev, log) -> list:
-    """The k=5 DemoCircuit proof on the card against the golden."""
+def prove_demo(dev, log, mesh=None) -> list:
+    """The k=5 DemoCircuit proof on the card against the golden (through
+    prove(mesh=...) when a process group is given)."""
     from zkevm_circuits_tpu_torch.plonk import demo
     from zkevm_circuits_tpu_torch.plonk.keygen import keygen
     from zkevm_circuits_tpu_torch.plonk.prover import prove
@@ -270,16 +329,17 @@ def prove_demo(dev, log) -> list:
     pk, vk = keygen(demo.DemoCircuit(), demo.K, srs, device=dev)
     t1 = time.perf_counter()
     proof = prove(pk, demo.DemoCircuit(), [[demo.A_IN]], srs,
-                  rng=np.random.default_rng(demo.GOLDEN_SEED), device=dev)
+                  rng=np.random.default_rng(demo.GOLDEN_SEED), device=dev,
+                  mesh=mesh)
     t2 = time.perf_counter()
     digest = hashlib.sha256(proof).hexdigest()
     golden = digest == demo.GOLDEN_SHA256 and len(proof) == demo.GOLDEN_LEN
     ok = verify(vk, [[demo.A_IN]], proof)
     wrong = verify(vk, [[demo.A_IN + 1]], proof)
     bad = prove(pk, demo.DemoCircuit(corrupt_row=5), [[demo.A_IN]], srs,
-                rng=np.random.default_rng(1), device=dev)
+                rng=np.random.default_rng(1), device=dev, mesh=mesh)
     corrupt = verify(vk, [[demo.A_IN]], bad)
-    log(f"[demo k=5] setup+keygen {t1 - t0:.2f} s prove {t2 - t1:.2f} s "
+    log(f"[{'mesh ' if mesh is not None else ''}demo k=5] setup+keygen {t1 - t0:.2f} s prove {t2 - t1:.2f} s "
         f"sha256={digest} golden={golden} verify={ok} "
         f"wrong_instance={wrong} corrupt_row5={corrupt}")
     if not golden:
@@ -289,20 +349,27 @@ def prove_demo(dev, log) -> list:
     return fails
 
 
-def prove_state(dev, log, gpu: str) -> list:
-    """The State circuit at DEGREE=16."""
+def prove_state(dev, log, gpu: str, digests: dict, mesh=None) -> list:
+    """The State circuit at DEGREE=16 (through prove(mesh=...) when a
+    process group is given); its proof's sha256 goes into `digests`."""
     from zkevm_circuits_tpu_torch.service.bench_circuits import state_prove_bench
 
-    r = state_prove_bench(16, device=dev, log=lambda m: None)
+    tag = "mesh state k=16" if mesh is not None else "state k=16"
+    r = state_prove_bench(16, device=dev, log=lambda m: None, mesh=mesh)
+    digests[tag] = hashlib.sha256(r["proof"]).hexdigest()
     phases = {k: round(v, 3) for k, v in r["prove_phases"].items()}
     kphases = {k: round(v, 3) for k, v in r["keygen_phases"].items()}
-    log(f"[state k=16] card={gpu!r} srs {r['srs_s']:.2f} s keygen "
+    log(f"[{tag}] card={gpu!r} srs {r['srs_s']:.2f} s keygen "
         f"{r['keygen_s']:.2f} s prove {r['prove_s']:.2f} s verify "
         f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
+        f"sha256={digests[tag]} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
-    log(f"[state k=16] prove phases (s, card={gpu!r}): {json.dumps(phases)}")
-    log(f"[state k=16] keygen phases (s, card={gpu!r}): {json.dumps(kphases)}")
-    return [] if r["ok"] else ["state k=16 proof did not verify"]
+    log(f"[{tag}] prove phases (s, card={gpu!r}): {json.dumps(phases)}")
+    log(f"[{tag}] keygen phases (s, card={gpu!r}): {json.dumps(kphases)}")
+    fails = [] if r["ok"] else [f"{tag} proof did not verify"]
+    if mesh is not None and digests[tag] != digests.get("state k=16"):
+        fails.append("mesh state k=16 proof differs from the state k=16 proof")
+    return fails
 
 
 def _flip_state_bit(circuit_cls):
@@ -427,6 +494,8 @@ KERNELS = [
      "zkevm_circuits_tpu/ops/pallas_field.py:334"),
     ("K3", "redc34", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:273"),
+    ("K4", "butterfly_stage", "zkevm_circuits_tpu_torch/csrc/field.cu",
+     "zkevm_circuits_tpu/ops/pallas_field.py:213"),
     ("K5", "g1_add", "zkevm_circuits_tpu_torch/csrc/curve.cu",
      "zkevm_circuits_tpu/ops/pallas_curve.py:336"),
     ("K6", "g1_double", "zkevm_circuits_tpu_torch/csrc/curve.cu",
@@ -441,6 +510,7 @@ def main() -> int:
     from zkevm_circuits_tpu_torch.ops import build
     from zkevm_circuits_tpu_torch.ops import cuda_field as cf
 
+    t_start = time.perf_counter()
     log = lambda m: print(m, flush=True)  # noqa: E731
     dev = torch.device("cuda")
     gpu = _gpu_line()
@@ -456,31 +526,51 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
 
     rec, fails = check_kernels(dev, log)
-    paths = {}
-    for path, drive in (("demo_k5", lambda: prove_demo(dev, log)),
-                        ("keccak_k9", lambda: prove_keccak_k9(dev, log)),
-                        ("state_k16", lambda: prove_state(dev, log, gpu)),
-                        ("keccak_k16", lambda: prove_keccak_k16(dev, log, gpu))):
+    paths, digests = {}, {}
+
+    def drive_path(path, drive, kids):
+        nonlocal fails
         torch.cuda.reset_peak_memory_stats(dev)
         cf.reset_launches()
         fails += drive()
         paths[path] = dict(cf.LAUNCHES)
         log(f"[launches] {path}: {json.dumps(paths[path])}")
         for kid, name, _, _ in KERNELS:
-            if paths[path][name] == 0:
+            if kid in kids and paths[path][name] == 0:
                 fails.append(f"{kid} {name} was not launched on {path}")
+
+    single = ("K1", "K2", "K3", "K5", "K6")
+    drive_path("demo_k5", lambda: prove_demo(dev, log), single)
+    drive_path("keccak_k9", lambda: prove_keccak_k9(dev, log), single)
+    drive_path("state_k16", lambda: prove_state(dev, log, gpu, digests), single)
+    drive_path("keccak_k16", lambda: prove_keccak_k16(dev, log, gpu), single)
+    # the sharded prover on an NCCL group of one rank (one card)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        every = single + ("K4",)
+        drive_path("mesh_demo_k5", lambda: prove_demo(dev, log, group), every)
+        drive_path("mesh_state_k16",
+                   lambda: prove_state(dev, log, gpu, digests, group), every)
+    finally:
+        dist.destroy_process_group()
     kernels = []
     for kid, name, source, replaces in KERNELS:
         r = rec[kid]
+        main = "mesh_state_k16" if kid == "K4" else "keccak_k16"
         kernels.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths["keccak_k16"][name],
+            "replaces": replaces, "launches": paths[main][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
+    kernels[3]["row_form"] = rec["K4"]["rows"]
+    kernels[3]["batch64"] = rec["K4"]["batch64"]
     log(f"[matmul] card={gpu!r} {json.dumps(rec['dft_matmul'])}")
+    log(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+        f"(card={gpu!r})")
     if fails:
         for f in fails:
             log(f"FAIL: {f}")

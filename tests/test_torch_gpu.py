@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, byte for byte, and the k=5 demo and k=9 Keccak
+version on the card, byte for byte, the sharded ops on an NCCL group of
+one rank against the unsharded ones, and the k=5 demo and k=9 Keccak
 golden proofs on the card.
 
 They skip without a card.  This file imports no JAX (the card's machine
@@ -14,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from zkevm_circuits_tpu_torch.crypto.curve import G1
+from zkevm_circuits_tpu_torch.crypto.curve import G1, g1_to_affine_ints
 from zkevm_circuits_tpu_torch.crypto.field import fq, fr
 from zkevm_circuits_tpu_torch.ops import cuda_curve as cc
 from zkevm_circuits_tpu_torch.ops import cuda_field as cf
+from zkevm_circuits_tpu_torch.poly.msm import msm_many
 
 pytestmark = pytest.mark.gpu
 
@@ -61,6 +63,58 @@ def test_k2_k3_kernels_match_plain(dev):
     tw = torch.as_tensor(_rand_fe(5, 16 * 32, fr().modulus), device=dev)
     tw = tw.reshape(16, 32, 32)
     assert torch.equal(cf.twiddle_mul_cuda(y, tw), cf.twiddle_mul_plain(y, tw))
+
+
+def test_k4_kernel_matches_plain(dev):
+    p = fr().modulus
+    lo, hi, tw = (torch.as_tensor(_rand_fe(s, 4096, p), device=dev) for s in (8, 9, 10))
+    hi[3:6] = lo[:3]
+    before = cf.LAUNCHES["butterfly_stage"]
+    got = cf.butterfly_stage(lo, hi, tw)
+    assert cf.LAUNCHES["butterfly_stage"] == before + 1
+    want = cf.butterfly_stage_plain(lo, hi, tw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x = torch.as_tensor(_rand_fe(11, 3 * 1024, p), device=dev).reshape(3, 1024, 32)
+    for s in (1, 2, 5, 10):
+        half = 1 << (s - 1)
+        tw = torch.as_tensor(_rand_fe(12 + s, max(3, half), p)[:half], device=dev)
+        assert torch.equal(cf.dit_stage(x, tw, s), cf.dit_stage_plain(x, tw, s)), s
+
+
+@pytest.fixture
+def nccl_group(dev):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_sharded_ops_on_an_nccl_group_of_one(dev, nccl_group):
+    from zkevm_circuits_tpu_torch.parallel.sharding import ProverMesh, make_sharded_commit
+    from zkevm_circuits_tpu_torch.plonk import prover
+    from zkevm_circuits_tpu_torch.poly import ntt
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    k, k_ext = 10, 12
+    p = fr().modulus
+    x = torch.as_tensor(_rand_fe(20, 2 << k, p), device=dev).reshape(2, 1 << k, 32)
+    ext = torch.as_tensor(_rand_fe(21, 2 << k_ext, p), device=dev).reshape(2, 1 << k_ext, 32)
+    srs = Srs.unsafe_setup(k, tau=0x77, device=dev)
+    pm = ProverMesh(nccl_group, k, k_ext, srs)
+    before = cf.LAUNCHES["butterfly_stage"]
+    assert torch.equal(pm.intt(x), ntt.intt(x, k))
+    assert cf.LAUNCHES["butterfly_stage"] == before + k  # one launch a stage
+    assert torch.equal(pm.coset_ntt_ext(ext), ntt.coset_ntt(ext, k_ext))
+    assert torch.equal(pm.coset_intt_ext(ext), ntt.coset_intt(ext, k_ext))
+    scan = x[0]
+    assert torch.equal(pm.exclusive_prefix_sum(scan), prover._exclusive_prefix_sum(scan))
+    assert torch.equal(pm.exclusive_prefix_product(scan, 1000, 1 << k),
+                       prover._exclusive_prefix_product(scan, 1000, 1 << k))
+    assert pm.commit_many(x) == srs.commit_many(x)
+    scal = fr().from_mont(x)
+    assert g1_to_affine_ints(make_sharded_commit(nccl_group)(srs.g1_powers, scal)) == \
+        g1_to_affine_ints(msm_many(srs.g1_powers, scal))
 
 
 @pytest.mark.parametrize("mode", ["complete", "incomplete", "affine"])

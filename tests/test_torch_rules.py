@@ -28,6 +28,12 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
+def test_rules_cover_every_subpackage():
+    """parallel/ (the sharded prover) is held to the same rules."""
+    for sub in ("crypto", "ops", "parallel", "plonk", "poly", "service"):
+        assert any(p.parent == PKG / sub for p in FILES), sub
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]

@@ -1,4 +1,5 @@
-// Field kernels K1 (mont_mul), K2 (NTT twiddle multiply) and K3 (wide REDC).
+// Field kernels K1 (mont_mul), K2 (NTT twiddle multiply), K3 (wide REDC)
+// and K4 (radix-2 butterfly stage).
 //
 // K1 replaces zkevm_circuits_tpu/ops/pallas_field.py::mont_mul
 //    (_mul_kernel -> _mont_mul_block: digit convolution, REDC, carry canon).
@@ -6,6 +7,9 @@
 //    Fr twiddle multiply between the two DFT passes of poly/ntt_mxu.py.
 // K3 replaces zkevm_circuits_tpu/ops/pallas_field.py::redc34, the wide
 //    REDC (T * 2^-272 mod p) after every DFT-pass matmul.
+// K4 replaces zkevm_circuits_tpu/ops/pallas_field.py::butterfly_stage
+//    (_butterfly_kernel), one radix-2 DIT stage over Fr:
+//    (lo + hi * tw, lo - hi * tw).
 //
 // What bounds them on the H100: each thread owns one element and keeps the
 // whole Montgomery product in registers (36 64x64-bit products, about 140
@@ -16,6 +20,17 @@
 // TPU kernels' digit planes and Toeplitz matrices do not exist here), reads
 // the u8 rows in place as u64 limbs, and lets K2 index the (n1, n2) twiddle
 // table instead of reading a broadcast copy of it.
+//
+// K4 is bound by bytes too: per butterfly it reads lo and hi and writes two
+// rows (128 bytes in the stage form, 160 in the row form, which also reads
+// a twiddle row) against one Montgomery product and an add and a subtract.
+// One thread owns one butterfly: it reads the two 32-byte rows in place as
+// four u64 limbs, reuses K1's device product and bn254.cuh's fe_add and
+// fe_sub, and keeps the product in registers.  In the stage form (the NTT
+// ladder) the thread computes its rows and its twiddle's index from its
+// butterfly index, as K2 does, so the stage reads the (half, 32) table of
+// the stage and never a pre-broadcast (rows, 32) copy, and no concatenate
+// follows: both outputs are written where the next stage reads them.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -106,6 +121,44 @@ __global__ void redc34_kernel(const int32_t *__restrict__ t,
   fe_store(out, r, cond_sub_p(res, FIELD_FR));  // res < 2p
 }
 
+// K4, row form: row r of lo pairs with row r of hi and of tw
+__global__ void butterfly_rows_kernel(const uint64_t *__restrict__ lo,
+                                      const uint64_t *__restrict__ hi,
+                                      const uint64_t *__restrict__ tw,
+                                      uint64_t *__restrict__ out_lo,
+                                      uint64_t *__restrict__ out_hi,
+                                      int64_t rows) {
+  int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  Fe a = fe_load(lo, r);
+  Fe t = fe_mul(fe_load(hi, r), fe_load(tw, r), FIELD_FR);
+  fe_store(out_lo, r, fe_add(a, t, FIELD_FR));
+  fe_store(out_hi, r, fe_sub(a, t, FIELD_FR));
+}
+
+// K4, stage form: x viewed as (batch, n = 2^log_n) rows, stage s in
+// [1, log_n] of the DIT ladder (blocks of m = 2^s rows, half = m / 2).
+// Butterfly i of the pairs = batch * n / 2: column b = i / (n / 2), j = its
+// index in the column, block j / half, t = j mod half; rows lo = b n +
+// block m + t and hi = lo + half; twiddle row t.
+__global__ void dit_stage_kernel(const uint64_t *__restrict__ x,
+                                 const uint64_t *__restrict__ tw,
+                                 uint64_t *__restrict__ out, int64_t pairs,
+                                 int log_n, int s) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int64_t half = int64_t{1} << (s - 1);
+  const int64_t j = i & ((int64_t{1} << (log_n - 1)) - 1);
+  const int64_t b = i >> (log_n - 1);
+  const int64_t t = j & (half - 1);
+  const int64_t lo = (b << log_n) + ((j >> (s - 1)) << s) + t;
+  const int64_t hi = lo + half;
+  Fe a = fe_load(x, lo);
+  Fe p = fe_mul(fe_load(x, hi), fe_load(tw, t), FIELD_FR);
+  fe_store(out, lo, fe_add(a, p, FIELD_FR));
+  fe_store(out, hi, fe_sub(a, p, FIELD_FR));
+}
+
 }  // namespace
 
 extern "C" {
@@ -135,6 +188,27 @@ int zk_redc34(const void *t, void *out, int64_t rows, void *stream) {
     redc34_kernel<<<blocks_for(rows), THREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t *>(t), static_cast<uint64_t *>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int zk_butterfly_rows(const void *lo, const void *hi, const void *tw,
+                      void *out_lo, void *out_hi, int64_t rows, void *stream) {
+  if (rows > 0)
+    butterfly_rows_kernel<<<blocks_for(rows), THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint64_t *>(lo), static_cast<const uint64_t *>(hi),
+        static_cast<const uint64_t *>(tw), static_cast<uint64_t *>(out_lo),
+        static_cast<uint64_t *>(out_hi), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int zk_dit_stage(const void *x, const void *tw, void *out, int64_t pairs,
+                 int log_n, int s, void *stream) {
+  if (pairs > 0)
+    dit_stage_kernel<<<blocks_for(pairs), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint64_t *>(x), static_cast<const uint64_t *>(tw),
+        static_cast<uint64_t *>(out), pairs, log_n, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1, K2, K3, K5, K6).
+"""Build and load the port's CUDA kernels (K1 to K6).
 
 The sources under ``csrc/`` have a plain C interface.  At first use they
 are compiled with ``nvcc`` for ``sm_90a`` into one shared library under
@@ -111,9 +111,12 @@ def lib() -> ctypes.CDLL:
             handle.zk_redc34.argtypes = [vp, vp, i64, vp]
             handle.zk_g1_add.argtypes = [vp] * 9 + [i64, i32, vp]
             handle.zk_g1_double.argtypes = [vp] * 6 + [i64, vp]
+            handle.zk_butterfly_rows.argtypes = [vp] * 5 + [i64, vp]
+            handle.zk_dit_stage.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             for fn in (handle.zk_mont_mul, handle.zk_twiddle_mul,
                        handle.zk_redc34, handle.zk_g1_add,
-                       handle.zk_g1_double):
+                       handle.zk_g1_double, handle.zk_butterfly_rows,
+                       handle.zk_dit_stage):
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib

@@ -1,5 +1,6 @@
-"""Field kernels K1 (Montgomery multiply), K2 (NTT twiddle multiply) and
-K3 (wide REDC), with their plain PyTorch versions.
+"""Field kernels K1 (Montgomery multiply), K2 (NTT twiddle multiply), K3
+(wide REDC) and K4 (radix-2 butterfly stage), with their plain PyTorch
+versions.
 
 Each wrapper sends a CUDA tensor to its kernel (csrc/field.cu) and a CPU
 tensor to its plain version; there is no other route.  The plain versions
@@ -30,8 +31,8 @@ MODULI = {FIELD_FR: FR_MODULUS, FIELD_FQ: FQ_MODULUS}
 RED_LIMBS = 17  # the NTT's wide REDC divides by 2^272 = 2^(16 * 17)
 
 # kernel launches, counted where each wrapper launches its kernel
-LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0, "g1_add": 0,
-            "g1_double": 0}
+LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0,
+            "butterfly_stage": 0, "g1_add": 0, "g1_double": 0}
 
 
 def reset_launches() -> None:
@@ -264,3 +265,85 @@ def redc34(t32: torch.Tensor) -> torch.Tensor:
     if t32.is_cuda:
         return redc34_cuda(t32)
     return redc34_plain(t32)
+
+
+# ---------------------------------------------------------------------------
+# K4: radix-2 DIT butterfly stage (Fr): (lo + hi * tw, lo - hi * tw)
+# ---------------------------------------------------------------------------
+def butterfly_stage_plain(lo: torch.Tensor, hi: torch.Tensor,
+                          tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: broadcasting (..., 32) u8 Montgomery Fr rows."""
+    cs = _consts(FIELD_FR, lo.device)
+    a = to_limbs(lo)
+    t = mont_mul_limbs(to_limbs(hi), to_limbs(tw), cs)
+    return from_limbs(add_limbs(a, t, cs)), from_limbs(sub_limbs(a, t, cs))
+
+
+def butterfly_stage_cuda(lo: torch.Tensor, hi: torch.Tensor,
+                         tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 on the card, the TPU kernel's contract: lo, hi, tw (rows, 32)."""
+    if not lo.shape == hi.shape == tw.shape:
+        raise ValueError(f"butterfly_stage: shapes {tuple(lo.shape)}, "
+                         f"{tuple(hi.shape)}, {tuple(tw.shape)} differ")
+    lo, hi, tw = lo.contiguous(), hi.contiguous(), tw.contiguous()
+    for t, name in ((lo, "lo"), (hi, "hi"), (tw, "tw")):
+        _check_rows(t, f"butterfly_stage {name}")
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(lo)
+    build.check(build.lib().zk_butterfly_rows(
+        lo.data_ptr(), hi.data_ptr(), tw.data_ptr(), out_lo.data_ptr(),
+        out_hi.data_ptr(), lo.numel() // 32, _stream()), "butterfly_stage")
+    LAUNCHES["butterfly_stage"] += 1
+    return out_lo, out_hi
+
+
+def butterfly_stage(lo: torch.Tensor, hi: torch.Tensor,
+                    tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: CUDA tensors launch the kernel, CPU tensors take the plain version."""
+    if lo.is_cuda or hi.is_cuda or tw.is_cuda:
+        return butterfly_stage_cuda(lo, hi, tw)
+    return butterfly_stage_plain(lo, hi, tw)
+
+
+def _stage_shape(x: torch.Tensor, tw: torch.Tensor, s: int) -> int:
+    """log2 of the transform length; raises on a shape the stage cannot take."""
+    n = x.shape[-2] if x.dim() >= 2 else 0
+    log_n = n.bit_length() - 1
+    if n < 2 or n != 1 << log_n or not 1 <= s <= log_n:
+        raise ValueError(f"dit_stage: stage {s} of {tuple(x.shape)}")
+    if tw.shape != (1 << (s - 1), 32):
+        raise ValueError(f"dit_stage: stage {s} needs a ({1 << (s - 1)}, 32) "
+                         f"twiddle table, got {tuple(tw.shape)}")
+    return log_n
+
+
+def dit_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """Plain version of K4's stage form: stage s (blocks of m = 2^s rows) of
+    the DIT ladder over a (..., n, 32) tensor; tw is the stage's
+    (m / 2, 32) table."""
+    _stage_shape(x, tw, s)
+    m, half = 1 << s, 1 << (s - 1)
+    xv = x.reshape(*x.shape[:-2], x.shape[-2] // m, m, 32)
+    out_lo, out_hi = butterfly_stage_plain(xv[..., :half, :], xv[..., half:, :], tw)
+    return torch.cat([out_lo, out_hi], dim=-2).reshape(x.shape)
+
+
+def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """K4's stage form on the card: one launch over the whole batch."""
+    log_n = _stage_shape(x, tw, s)
+    x, tw = x.contiguous(), tw.contiguous()
+    _check_rows(x, "dit_stage x")
+    _check_rows(tw, "dit_stage tw")
+    out = torch.empty_like(x)
+    build.check(build.lib().zk_dit_stage(
+        x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.numel() // 64, log_n, s,
+        _stream()), "butterfly_stage")
+    LAUNCHES["butterfly_stage"] += 1
+    return out
+
+
+def dit_stage(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """K4, stage form: CUDA tensors launch the kernel, CPU tensors take the
+    plain version."""
+    if x.is_cuda or tw.is_cuda:
+        return dit_stage_cuda(x, tw, s)
+    return dit_stage_plain(x, tw, s)

@@ -1,5 +1,5 @@
-"""PLONK prover (port of zkevm_circuits_tpu/plonk/prover.py, the single-
-device path with the chunked quotient).
+"""PLONK prover (port of zkevm_circuits_tpu/plonk/prover.py, with the
+chunked quotient).
 
 Protocol, transcript order and blinding are the reference's, so for the
 same SRS, keys and `rng` the proof bytes are the reference's:
@@ -144,11 +144,26 @@ def prove(
     rng: np.random.Generator | None = None,
     device=None,
     timings: dict | None = None,
+    mesh=None,
 ) -> bytes:
     """Proof bytes for `circuit` under `pk`.  The proof is a function of
     `rng` (blinding rows are drawn from it in the reference's order).
-    `timings`, when a dict, gets the seconds of each prover phase."""
+    `timings`, when a dict, gets the seconds of each prover phase.
+
+    When `mesh` (a torch.distributed process group) is given, every rank
+    calls prove with the same arguments, and the hot polynomial passes
+    (iNTT at k, coset NTT / iNTT at k_ext, column commitments, grand-product
+    and running-sum scans) run row-sharded over its ranks
+    (parallel/sharding.ProverMesh); the proof bytes equal the single-device
+    path's for the same rng.  Its backend must suit `device` (NCCL with
+    CUDA, gloo with the CPU).  The quotient stays `_quotient_chunked` on
+    every rank, where the reference's mesh path runs its quotient body as
+    one jit: the same field values, so the same bytes."""
     dev = resolve(device)
+    if mesh is not None:
+        from ..parallel.sharding import check_backend
+
+        check_backend(mesh, dev)
     cs: ConstraintSystem = pk.vk.cs
     # (re)configure the instance so its column-index attributes exist
     circuit.configure(ConstraintSystem())
@@ -174,13 +189,30 @@ def prove(
         marks[stage] = marks.get(stage, 0.0) + now - t0
         t0 = now
 
+    # hot-op bundle: single-device defaults, or row-sharded versions
+    if mesh is not None:
+        from ..parallel.sharding import ProverMesh
+
+        pm = ProverMesh(mesh, k, k_ext, srs)
+        intt_k = pm.intt
+        commit_many = pm.commit_many
+        coset_ntt_ext = pm.coset_ntt_ext
+        coset_intt_ext = pm.coset_intt_ext
+        prefix_prod = pm.exclusive_prefix_product
+        prefix_sum = pm.exclusive_prefix_sum
+    else:
+        intt_k = lambda x: intt(x, k)  # noqa: E731
+        commit_many = srs.commit_many
+        coset_ntt_ext = lambda x: coset_ntt(x, k_ext)  # noqa: E731
+        coset_intt_ext = lambda x: coset_intt(x, k_ext)  # noqa: E731
+        prefix_prod = _exclusive_prefix_product
+        prefix_sum = _exclusive_prefix_sum
+
     def commit_write(cols: list):
         """Commit columns in one MSM and write the points in order."""
         if cols:
-            for point in srs.commit_many(torch.stack(cols)):
+            for point in commit_many(torch.stack(cols)):
                 t.write_point(point)
-
-    intt_k = lambda x: intt(x, k)  # noqa: E731
 
     # ---- instances -------------------------------------------------------------
     for col in instances:
@@ -217,6 +249,10 @@ def prove(
         for ci, ph in enumerate(cs.challenge_phases):
             if ph == phase:
                 challenges[ci] = F.scalar(t.squeeze_challenge(), dev)
+    if mesh is not None:
+        # as the reference's mesh path: advice is transformed again after
+        # the phases (there, to keep its coefficients sharded)
+        advice_coeffs = intt_k(advice_evals)
     _mark("advice and commit")
 
     tables_h = {
@@ -293,7 +329,7 @@ def prove(
             sig = pk.sigma_evals[ci]
             den = F.mul(den, F.add(v, F.add(F.mul(beta_m, sig), gamma_m)))
         ratio = F.mul(num, F.batch_inv(den, axis=0))
-        z_perm = blind(_exclusive_prefix_product(ratio, u, n), u + 1)
+        z_perm = blind(prefix_prod(ratio, u, n), u + 1)
         z_perm_coeffs = intt_k(z_perm)
         to_commit.append(z_perm_coeffs)
 
@@ -302,7 +338,7 @@ def prove(
         num = F.mul(F.add(ld["a"], beta_m), F.add(ld["s"], gamma_m))
         den = F.mul(F.add(ld["ap"], beta_m), F.add(ld["sp"], gamma_m))
         ratio = F.mul(num, F.batch_inv(den, axis=0))
-        z = blind(_exclusive_prefix_product(ratio, u, n), u + 1)
+        z = blind(prefix_prod(ratio, u, n), u + 1)
         ld["z"] = z
         ld["z_coeffs"] = intt_k(z)
         to_commit.append(ld["z_coeffs"])
@@ -322,7 +358,7 @@ def prove(
         for h in hs:
             delta = F.add(delta, h)
         delta = F.sub(delta, h_t)
-        phi = _exclusive_prefix_sum(delta)
+        phi = prefix_sum(delta)
         hs = [blind(h) for h in hs]
         h_t = blind(h_t)
         phi = blind(phi, u + 1)
@@ -345,7 +381,7 @@ def prove(
                 out[s_:s_ + EXT_BATCH] = to_ext(coeffs[s_:s_ + EXT_BATCH])
             return out
         pad = coeffs.new_zeros(*coeffs.shape[:-2], n_ext - n, 32)
-        return coset_ntt(torch.cat([coeffs, pad], dim=-2), k_ext)
+        return coset_ntt_ext(torch.cat([coeffs, pad], dim=-2))
 
     advice_ext = to_ext(advice_coeffs)
     instance_ext = to_ext(instance_coeffs)
@@ -371,7 +407,7 @@ def prove(
     )
     _mark("quotient")
 
-    h_coeffs = coset_intt(h_ext, k_ext)
+    h_coeffs = coset_intt_ext(h_ext)
     n_pieces = n_ext // n
     h_pieces = [h_coeffs[i * n:(i + 1) * n] for i in range(n_pieces)]
     commit_write(h_pieces)

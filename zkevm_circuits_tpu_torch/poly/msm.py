@@ -20,11 +20,16 @@ zkevm_circuits_tpu/poly/msm.py, the lane-private scan path of `msm()`).
 Results are equal to the reference's as group elements; compare them in
 affine form.  Scalars are (n, 32) uint8 little-endian bytes (plain, not
 Montgomery).
+
+`make_sharded_msm` splits the rows over the ranks of a torch.distributed
+group: a local MSM per rank, then an all_gather of the partial points and
+a tree sum.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..crypto.curve import G1, g1_add, g1_double, g1_infinity
 
@@ -142,3 +147,40 @@ def msm(points: G1, scalars_u8) -> G1:
         torch.as_tensor(scalars_u8, device=points.x.device)
     out = msm_many(points, s[None])
     return G1(*(t[0] for t in out))
+
+
+def msm_sharded_body(points: G1, scalars_u8: torch.Tensor, group) -> G1:
+    """This rank's rows: points (L,), scalar columns (c, L, 32) -> (c,)
+    Jacobian sums over all ranks, the same on every rank.  The local MSM
+    runs through `msm_many`; the D partial points are all_gathered and
+    summed by a log-depth tree (point addition is no reduction op of a
+    collective; one point per rank and column crosses the wire)."""
+    local = msm_many(points, scalars_u8)
+    d = dist.get_world_size(group)
+    parts = []
+    for coord in local:
+        got = [torch.empty_like(coord) for _ in range(d)]
+        dist.all_gather(got, coord.contiguous(), group=group)
+        parts.append(torch.stack(got))  # (D, c, 32)
+    return g1_tree_sum(G1(*parts), axis=0)
+
+
+def local_points(points: G1, group) -> G1:
+    """This rank's rows [r L, (r + 1) L) of an (n,) point array."""
+    d, r = dist.get_world_size(group), dist.get_rank(group)
+    size = points.x.shape[0] // d
+    return G1(*(c[r * size:(r + 1) * size] for c in points))
+
+
+def make_sharded_msm(group):
+    """(points (n,), scalars (n, 32)) -> one Jacobian point, replicated:
+    each rank sums its rows of both, see `msm_sharded_body`."""
+    d, r = dist.get_world_size(group), dist.get_rank(group)
+
+    def fn(points: G1, scalars_u8: torch.Tensor) -> G1:
+        size = scalars_u8.shape[0] // d
+        out = msm_sharded_body(local_points(points, group),
+                               scalars_u8[None, r * size:(r + 1) * size], group)
+        return G1(*(t[0] for t in out))
+
+    return fn

@@ -59,8 +59,9 @@ def synthetic_rw_workload(n_rows: int) -> list[Rw]:
 
 
 def state_prove_bench(k: int = 18, tau: int = 0xB_E2C4, device=None,
-                      log=print) -> dict:
+                      log=print, mesh=None) -> dict:
     """SRS + keygen + prove + verify of the State circuit at degree `k`.
+    `mesh`, a torch.distributed process group, goes to `prove(mesh=...)`.
 
     Returns {"k", "rows", "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
     "proof_bytes", "proof", "keygen_phases", "prove_phases"}."""
@@ -95,7 +96,7 @@ def state_prove_bench(k: int = 18, tau: int = 0xB_E2C4, device=None,
     prove_phases: dict = {}
     t0 = time.perf_counter()
     proof = prove(pk, circuit, [], srs, rng=np.random.default_rng(7),
-                  device=dev, timings=prove_phases)
+                  device=dev, timings=prove_phases, mesh=mesh)
     prove_s = time.perf_counter() - t0
     _mark(f"prove: {prove_s:.2f}s")
 

@@ -128,6 +128,83 @@ def test_k6_plain_matches_reference_and_fused_kernel():
     assert got.z[3].eq(0).all() and got.z[7].eq(0).all()
 
 
+@pytest.mark.parametrize("times", [1, 3, 8])
+def test_k6_plain_times_matches_repeated_reference(times):
+    """g1_double_plain(times=k) is k applications of the JAX g1_double,
+    rows at infinity included."""
+    p = _double_case(ROWS)
+    got = tc.G1(*cc.g1_double_plain(*_to_t(p), times=times))
+    want = p
+    for _ in range(times):
+        want = _jdbl(want)
+    assert _same(want, got)
+    assert got.z[3].eq(0).all() and got.z[7].eq(0).all()
+    assert _same(want, tc.g1_double(_to_t(p), times=times))
+
+
+def _bucket_case(c, lanes, n_win, n_buck, steps):
+    """Seeded bucket steps: points (steps, lanes) in the affine layout as
+    the SRS gives them, digits (steps, c, lanes, n_win) with zeros, one
+    repeated digit across a row's windows, and, in step 1, lane 0's point
+    and digits of step 0 again (its buckets then hold P and add P)."""
+    aff = _affine_points(12, steps * lanes)
+    aff[lanes] = aff[0]
+    pts = _to_t(jc.g1_from_affine_ints(aff))
+    pts = tc.G1(*(t.reshape(steps, lanes, 32) for t in pts))
+    rng = np.random.default_rng(13)
+    dig = rng.integers(0, n_buck, size=(steps, c, lanes, n_win), dtype=np.uint8)
+    dig[:, 0, 1] = 0
+    dig[:, 0, 2] = dig[:, 0, 2, :1]
+    dig[:, 1] *= rng.integers(0, 2, size=(steps, lanes, n_win), dtype=np.uint8)
+    dig[1, :, 0] = dig[0, :, 0]
+    return pts, torch.as_tensor(dig)
+
+
+def test_bucket_add_plain_matches_gather_add_scatter():
+    """K5's bucket form (plain) equals gather -> g1_add_plain -> scatter
+    over all rows, on every bucket except bucket 0, which it leaves at
+    infinity."""
+    c, lanes, n_win, n_buck, steps = 2, 4, 3, 16, 3
+    pts, dig = _bucket_case(c, lanes, n_win, n_buck, steps)
+    got = tc.g1_infinity((c, lanes, n_win, n_buck), "cpu")
+    want = [t.clone() for t in got]
+    ci = torch.arange(c)[:, None, None]
+    li = torch.arange(lanes)[None, :, None]
+    wi = torch.arange(n_win)[None, None, :]
+    for s in range(steps):
+        tc.g1_bucket_add(got, dig[s], tc.G1(*(t[s] for t in pts)))
+        d = dig[s].long()
+        cur = [a[ci, li, wi, d] for a in want]
+        pt = [t[s][None, :, None, :].expand(c, lanes, n_win, 32) for t in pts]
+        for a, o in zip(want, cc.g1_add_plain(*cur, *pt)):
+            a[ci, li, wi, d] = o
+    assert all(torch.equal(g[..., 1:, :], w[..., 1:, :]) for g, w in zip(got, want))
+    inf = tc.g1_infinity((c, lanes, n_win), "cpu")
+    assert all(torch.equal(g[..., 0, :], i) for g, i in zip(got, inf))
+    # the buckets hold the sums of their points, as group elements
+    host = {}
+    for s in range(steps):
+        for cc_, l, w in np.ndindex(c, lanes, n_win):
+            dd = int(dig[s, cc_, l, w])
+            if dd:
+                key = (cc_, l, w, dd)
+                pt = _affine(tc.G1(*(t[s, l][None] for t in pts)))[0]
+                host[key] = jc.host_g1_add(host.get(key), pt)
+    flat = _affine(tc.G1(*(t.reshape(-1, 32) for t in got)))
+    for (cc_, l, w, dd), want_pt in host.items():
+        assert flat[((cc_ * lanes + l) * n_win + w) * n_buck + dd] == want_pt
+
+
+def test_g1_bucket_add_routes_cpu_to_plain():
+    from zkevm_circuits_tpu_torch.ops import cuda_field as cf
+
+    pts, dig = _bucket_case(2, 4, 2, 4, 2)
+    acc = tc.g1_infinity((2, 4, 2, 4), "cpu")
+    cf.reset_launches()
+    tc.g1_bucket_add(acc, dig[0], tc.G1(*(t[0] for t in pts)))
+    assert cf.LAUNCHES["g1_bucket_add"] == 0 and cf.LAUNCHES["g1_add"] == 0
+
+
 def test_g1_double_routes_cpu_to_plain():
     from zkevm_circuits_tpu_torch.ops import cuda_field as cf
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, byte for byte, the sharded ops on an NCCL group of
-one rank against the unsharded ones, and the k=5 demo and k=9 Keccak
-golden proofs on the card.
+version on the card, byte for byte (K5's three modes, its warp vote and
+its bucket-step form, K6 once and eight times), the sharded ops on an
+NCCL group of one rank against the unsharded ones, the MSM's K6 launch
+count, and the k=5 demo and k=9 Keccak golden proofs on the card.
 
 They skip without a card.  This file imports no JAX (the card's machine
 has none); run it there with
@@ -159,6 +160,91 @@ def test_k6_kernel_matches_plain(dev):
     assert got[2][:8].eq(0).all()
     got10 = cc.g1_double_cuda(*(c[:10] for c in p))
     assert all(torch.equal(g, w[:10]) for g, w in zip(got10, want))
+
+
+def _jacobian_points(n, seed, dev):
+    """n seeded SRS points, moved to random Jacobian representatives."""
+    from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
+
+    Q = fq()
+    p = srs_g1_powers(n, seed, dev)
+    z = torch.as_tensor(_rand_fe(seed, n, Q.modulus)[::-1].copy(), device=dev)
+    z2 = Q.mul(z, z)
+    return [Q.mul(p.x, z2), Q.mul(p.y, Q.mul(z2, z)), z]
+
+
+@pytest.mark.parametrize("case", ["one_same_in_a_warp", "generic_warps", "ragged_edge"])
+def test_k5_complete_vote_matches_plain(dev, case):
+    """The doubling's warp vote: one P = Q row among 31 generic rows, warps
+    of generic rows only, and a P = Q row in a last, partial warp."""
+    n = 45 if case == "ragged_edge" else 64
+    p = _jacobian_points(n, 30, dev)
+    q = _jacobian_points(n, 31, dev)
+    row = {"one_same_in_a_warp": 5, "ragged_edge": 40}.get(case)
+    if row is not None:
+        for cp, cq in zip(p, q):
+            cq[row] = cp[row]
+    got = cc.g1_add_cuda(*p, *q, mode="complete")
+    want = cc.g1_add_plain(*p, *q, mode="complete")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k5_bucket_form_matches_plain(dev):
+    """Three bucket steps from empty buckets, byte for byte over the whole
+    array; step 1 brings lane 0 its step-0 point and digits again."""
+    from zkevm_circuits_tpu_torch.crypto.curve import g1_infinity
+    from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
+
+    c, lanes, n_win, n_buck, steps = 2, 64, 32, 256, 3
+    pts = [t.reshape(steps, lanes, 32).clone()
+           for t in srs_g1_powers(steps * lanes, 33, dev)]
+    for t in pts:
+        t[1, 0] = t[0, 0]
+    rng = np.random.default_rng(34)
+    dig = rng.integers(0, n_buck, size=(steps, c, lanes, n_win), dtype=np.uint8)
+    dig[:, 0, 1] = 0
+    dig[:, 1] *= rng.integers(0, 2, size=(steps, lanes, n_win), dtype=np.uint8)
+    dig[1, :, 0] = dig[0, :, 0]
+    dig = torch.as_tensor(dig, device=dev)
+    got = list(g1_infinity((c, lanes, n_win, n_buck), dev))
+    want = [t.clone() for t in got]
+    before = cf.LAUNCHES["g1_bucket_add"]
+    for s in range(steps):
+        cc.g1_bucket_add(*got, dig[s], *(t[s] for t in pts))
+        cc.g1_bucket_add_plain(*want, dig[s], *(t[s] for t in pts))
+    assert cf.LAUNCHES["g1_bucket_add"] == before + steps
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k6_times_matches_plain(dev):
+    p = _jacobian_points(300, 35, dev)
+    p[2][:8] = 0  # infinity stays infinity
+    for times in (1, 8):
+        before = cf.LAUNCHES["g1_double"]
+        got = cc.g1_double(*p, times=times)
+        assert cf.LAUNCHES["g1_double"] == before + 1
+        want = cc.g1_double_plain(*p, times=times)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert got[2][:8].eq(0).all()
+        got10 = cc.g1_double_cuda(*(c[:10] for c in p), times=times)
+        assert all(torch.equal(g, w[:10]) for g, w in zip(got10, want))
+
+
+def test_msm_many_k6_launches(dev):
+    """A (10, 2^12) stack at 8-bit windows: one K6 launch per window step
+    of the Horner (31) and per bit of the bucket weighting (7); one bucket
+    step per block of 512 points (8)."""
+    from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
+
+    n = 1 << 12
+    pts = srs_g1_powers(n, 36, dev)
+    scal = torch.as_tensor(_rand_fe(37, 10 * n, fr().modulus).reshape(10, n, 32),
+                           device=dev)
+    before = dict(cf.LAUNCHES)
+    out = msm_many(pts, scal)
+    assert cf.LAUNCHES["g1_double"] - before["g1_double"] == 31 + 7
+    assert cf.LAUNCHES["g1_bucket_add"] - before["g1_bucket_add"] == 8
+    assert out.x.shape == (10, 32)
 
 
 def test_g1_double_on_card_is_one_k6_launch(dev):

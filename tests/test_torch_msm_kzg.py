@@ -1,13 +1,17 @@
 """Port MSM, SRS, commitments, transcript and SHPLONK against the JAX
 package and the host-int oracle, exact bytes (MSM results in affine)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from zkevm_circuits_tpu.crypto import curve as jc
 from zkevm_circuits_tpu.crypto.field import fr as jfr
+from zkevm_circuits_tpu.crypto.params import FR_MODULUS, to_digits
 from zkevm_circuits_tpu.poly import kzg as jkzg
+from zkevm_circuits_tpu.poly import msm as jmsm
 from zkevm_circuits_tpu.poly import transcript as jtr
 from zkevm_circuits_tpu_torch.convert import srs_from_numpy
 from zkevm_circuits_tpu_torch.crypto import curve as tc
@@ -57,6 +61,57 @@ def test_msm_matches_host_msm(n):
     got = tmsm.msm(pts, digits)
     got_aff = tc.g1_to_affine_ints(tc.G1(*(c[None] for c in got)))[0]
     assert got_aff == jc.host_msm(aff, scal)
+
+
+SPARSE_N = 12  # one JAX msm shape, compiled once for every case
+
+
+def _sparse_case(kind):
+    """SPARSE_N affine points and scalars: all 0 or 1, or random with about
+    half their bytes zero (one scalar 0, one with a single nonzero byte)."""
+    rng = np.random.default_rng(17)
+    aff = [jc.host_g1_mul(jc.G1_GEN, int.from_bytes(rng.bytes(16), "little"))
+           for _ in range(SPARSE_N)]
+    if kind == "zero_one":
+        scal = [int(b) for b in rng.integers(0, 2, SPARSE_N)]
+    else:
+        raw = rng.integers(0, 256, size=(SPARSE_N, 32), dtype=np.uint8)
+        raw *= rng.integers(0, 2, size=(SPARSE_N, 32), dtype=np.uint8)
+        raw[0] = 0
+        raw[1] = 0
+        raw[1, 7] = 0x5A
+        scal = [int.from_bytes(r.tobytes(), "little") % FR_MODULUS for r in raw]
+    return aff, scal
+
+
+def _digits(scal):
+    return np.array([list(s.to_bytes(32, "little")) for s in scal], np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["zero_one", "zero_bytes"])
+def test_msm_on_sparse_scalars_matches_jax_and_host(kind):
+    """Digit-0 rows add nothing in the port's bucket steps: sums over 0/1
+    scalars and scalars with zero bytes equal the JAX msm and host_msm."""
+    aff, scal = _sparse_case(kind)
+    want = jc.host_msm(aff, scal)
+    jpts = jc.g1_from_affine_ints(aff)
+    jsc = jnp.asarray(np.array([to_digits(v) for v in scal], np.uint8))
+    jout = jmsm.msm(jpts, jsc)
+    assert jc.g1_to_affine_ints(jax.tree.map(lambda x: x[None], jout))[0] == want
+    pts = tc.g1_from_affine_ints(aff, device="cpu")
+    got = tmsm.msm(pts, torch.as_tensor(_digits(scal)))
+    assert tc.g1_to_affine_ints(tc.G1(*(c[None] for c in got)))[0] == want
+
+
+def test_msm_many_on_sparse_scalar_stack():
+    """One bucket pass over a (3, n) stack: the two sparse cases and a
+    column of zeros."""
+    aff, s01 = _sparse_case("zero_one")
+    _, szb = _sparse_case("zero_bytes")
+    stack = np.stack([_digits(s01), _digits(szb), _digits([0] * SPARSE_N)])
+    pts = tc.g1_from_affine_ints(aff, device="cpu")
+    got = tc.g1_to_affine_ints(tmsm.msm_many(pts, torch.as_tensor(stack)))
+    assert got == [jc.host_msm(aff, s01), jc.host_msm(aff, szb), None]
 
 
 def test_srs_from_numpy(srs_pair):

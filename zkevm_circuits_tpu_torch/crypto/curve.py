@@ -2,8 +2,9 @@
 
 Port of zkevm_circuits_tpu/crypto/curve.py.  Points are Jacobian
 (X, Y, Z) triples of Montgomery Fq elements, each (..., 32) uint8;
-infinity is Z == 0.  `g1_add` is kernel K5 and `g1_double` kernel K6 on
-CUDA tensors (their plain versions on CPU tensors), one launch per call.
+infinity is Z == 0.  `g1_add` and `g1_bucket_add` are kernel K5 and
+`g1_double` kernel K6 on CUDA tensors (their plain versions on CPU
+tensors), one launch per call.
 The host `host_*` / `_hj_*` helpers are pure Python.
 """
 
@@ -71,9 +72,10 @@ def g1_to_affine_ints(p: G1) -> list:
     return [None if i else (x, y) for i, x, y in zip(inf, xs, ys)]
 
 
-def g1_double(p: G1) -> G1:
-    """2P for a=0 curves (kernel K6).  Correct for infinity (Z=0 stays Z=0)."""
-    return G1(*cuda_curve.g1_double(p.x, p.y, p.z))
+def g1_double(p: G1, times: int = 1) -> G1:
+    """2^times P for a=0 curves (kernel K6, one launch).  Correct for
+    infinity (Z=0 stays Z=0)."""
+    return G1(*cuda_curve.g1_double(p.x, p.y, p.z, times))
 
 
 def g1_add(p: G1, q: G1, mode: str = "complete") -> G1:
@@ -83,6 +85,15 @@ def g1_add(p: G1, q: G1, mode: str = "complete") -> G1:
     shape = torch.broadcast_shapes(p.x.shape, q.x.shape)
     args = [c.expand(shape) for c in (*p, *q)]
     return G1(*cuda_curve.g1_add(*args, mode=mode))
+
+
+def g1_bucket_add(buckets: G1, digits: torch.Tensor, points: G1) -> None:
+    """One MSM bucket step, in place (kernel K5's bucket form): for each
+    (column c, lane l, window w) whose digit d = digits[c, l, w] is not 0,
+    buckets[c, l, w, d] += points[l] (complete add).  Buckets are
+    (c, lanes, n_win, n_buck) points, digits (c, lanes, n_win) uint8,
+    points (lanes,)."""
+    cuda_curve.g1_bucket_add(*buckets, digits, *points)
 
 
 def g1_neg(p: G1) -> G1:

@@ -5,10 +5,12 @@
 // Values are Montgomery residues with R = 2^256.  Every function here takes
 // canonical inputs (< p) and returns canonical outputs.
 //
-// The multiply is CIOS over 4 x u64 limbs with __umul64hi: 16 limb
-// products for a*b, 16 for m*p and 4 for the m's, all in registers.  Both
-// BN254 moduli are < 2^254, so the running sum stays below 2p and one
-// conditional subtraction makes the result canonical.
+// The field kernels' multiply (fe_mul, either field) is CIOS over 4 x u64
+// limbs with __umul64hi: 16 limb products for a*b, 16 for m*p and 4 for
+// the m's, all in registers.  Both BN254 moduli are < 2^254, so the running
+// sum stays below 2p and one conditional subtraction makes the result
+// canonical.  The curve kernels use the Fq32 arithmetic at the end of this
+// file instead: 8 x u32 words on PTX carry chains.
 #pragma once
 #include <cstdint>
 
@@ -27,13 +29,6 @@ static __constant__ uint64_t P_LIMBS[2][4] = {
 // -p^-1 mod 2^64
 static __constant__ uint64_t NP0[2] = {0xc2e1f593efffffffULL,
                                        0x87d20782e4866389ULL};
-// Montgomery one: 2^256 mod p
-static __constant__ uint64_t ONE_MONT[2][4] = {
-    {0xac96341c4ffffffbULL, 0x36fc76959f60cd29ULL, 0x666ea36f7879462eULL,
-     0x0e0a77c19a07df2fULL},
-    {0xd35d438dc58f0d9dULL, 0x0a78eb28f5c70b3dULL, 0x666ea36f7879462cULL,
-     0x0e0a77c19a07df2fULL},
-};
 
 struct Fe {
   uint64_t v[4];
@@ -136,28 +131,6 @@ __device__ __forceinline__ Fe fe_mul(const Fe &a, const Fe &b, int f) {
   return cond_sub_p(r, f);  // t < 2p < 2^255, so t4 == 0 here
 }
 
-__device__ __forceinline__ bool fe_is_zero(const Fe &a) {
-  return (a.v[0] | a.v[1] | a.v[2] | a.v[3]) == 0;
-}
-
-__device__ __forceinline__ Fe fe_select(bool c, const Fe &a, const Fe &b) {
-  return c ? a : b;
-}
-
-__device__ __forceinline__ Fe fe_one_mont(int f) {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < 4; j++) r.v[j] = ONE_MONT[f][j];
-  return r;
-}
-
-__device__ __forceinline__ Fe fe_zero() {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < 4; j++) r.v[j] = 0;
-  return r;
-}
-
 __device__ __forceinline__ Fe fe_load(const uint64_t *p, int64_t row) {
   Fe r;
   const uint64_t *q = p + 4 * row;
@@ -171,6 +144,316 @@ __device__ __forceinline__ void fe_store(uint64_t *p, int64_t row,
   uint64_t *q = p + 4 * row;
 #pragma unroll
   for (int j = 0; j < 4; j++) q[j] = a.v[j];
+}
+
+// ---------------------------------------------------------------------------
+// Fq over 8 x u32 words on the integer pipe's carry chains (K5, K6)
+// ---------------------------------------------------------------------------
+// The same 32-byte rows, read in place as eight little-endian u32 words.
+// A 32 x 32-bit partial product is two instructions, mad.lo and madc.hi,
+// that add into the accumulator word with the carry flag: no carry is
+// recovered by a compare and no 64 x 64-bit product is emulated.
+//
+// A row of a product (a * b_i into columns i..i+8) is two carry chains: one
+// over the even words of a, whose low and high halves fill the consecutive
+// columns i..i+7, and one over the odd words, columns i+1..i+8.  Each chain
+// ends in a single carry word, so no carry has to ripple through the
+// columns above it.  A squaring computes the 28 cross products a_i a_j
+// (i < j) once, doubles them with one add chain and adds the 8 squares
+// a_i^2 with one more.  Both leave the 512-bit t = a * b in 16 words, which
+// REDC reduces a word at a time (m = t_0 * -p^-1 mod 2^32; t += m p;
+// t >>= 32), again with an even and an odd chain, bringing in the next high
+// word of t as the window slides.  Operands < p give t < p^2, so REDC ends
+// below 2p and one conditional subtraction makes the result canonical.
+//
+// Instruction counts: a product is 128 + 128 multiply halves plus 8 for the
+// m's (264); a squaring 56 + 16 + 128 + 8 (208).
+//
+// The carry flag lives between the asm statements below: each is volatile,
+// so the compiler keeps their order, and nothing between two of them in a
+// chain writes the flag.
+namespace cc {
+
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// lo(a * b) + c, carry out
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;"
+               : "=r"(r)
+               : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+// lo(a * b) + c + carry, carry out
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;"
+               : "=r"(r)
+               : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+// hi(a * b) + c + carry, carry out
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;"
+               : "=r"(r)
+               : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+// hi(a * b) + c + carry
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;"
+               : "=r"(r)
+               : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+}  // namespace cc
+
+struct Fq32 {
+  uint32_t w[8];
+};
+
+// Fq's modulus, -p^-1 mod 2^32 and 2^256 mod p as u32 words
+constexpr uint32_t FQ_P0 = 0xd87cfd47u, FQ_P1 = 0x3c208c16u,
+                   FQ_P2 = 0x6871ca8du, FQ_P3 = 0x97816a91u,
+                   FQ_P4 = 0x8181585du, FQ_P5 = 0xb85045b6u,
+                   FQ_P6 = 0xe131a029u, FQ_P7 = 0x30644e72u;
+constexpr uint32_t FQ_NP0 = 0xe4866389u;
+constexpr uint32_t FQ_ONE0 = 0xc58f0d9du, FQ_ONE1 = 0xd35d438du,
+                   FQ_ONE2 = 0xf5c70b3du, FQ_ONE3 = 0x0a78eb28u,
+                   FQ_ONE4 = 0x7879462cu, FQ_ONE5 = 0x666ea36fu,
+                   FQ_ONE6 = 0x9a07df2fu, FQ_ONE7 = 0x0e0a77c1u;
+
+// x < 2p -> x mod p
+__device__ __forceinline__ Fq32 fq_reduce_once(const Fq32 &x) {
+  const uint32_t p[8] = {FQ_P0, FQ_P1, FQ_P2, FQ_P3,
+                         FQ_P4, FQ_P5, FQ_P6, FQ_P7};
+  Fq32 s;
+  s.w[0] = cc::sub_cc(x.w[0], p[0]);
+#pragma unroll
+  for (int j = 1; j < 8; j++) s.w[j] = cc::subc_cc(x.w[j], p[j]);
+  const uint32_t borrow = cc::subc(0u, 0u);  // all ones if x < p
+#pragma unroll
+  for (int j = 0; j < 8; j++) s.w[j] = borrow ? x.w[j] : s.w[j];
+  return s;
+}
+
+__device__ __forceinline__ Fq32 fq_add(const Fq32 &a, const Fq32 &b) {
+  Fq32 s;
+  s.w[0] = cc::add_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int j = 1; j < 7; j++) s.w[j] = cc::addc_cc(a.w[j], b.w[j]);
+  s.w[7] = cc::addc(a.w[7], b.w[7]);  // a + b < 2p < 2^255: no carry out
+  return fq_reduce_once(s);
+}
+
+__device__ __forceinline__ Fq32 fq_sub(const Fq32 &a, const Fq32 &b) {
+  const uint32_t p[8] = {FQ_P0, FQ_P1, FQ_P2, FQ_P3,
+                         FQ_P4, FQ_P5, FQ_P6, FQ_P7};
+  Fq32 d;
+  d.w[0] = cc::sub_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int j = 1; j < 8; j++) d.w[j] = cc::subc_cc(a.w[j], b.w[j]);
+  const uint32_t mask = cc::subc(0u, 0u);  // all ones if a < b: add p back
+  d.w[0] = cc::add_cc(d.w[0], p[0] & mask);
+#pragma unroll
+  for (int j = 1; j < 7; j++) d.w[j] = cc::addc_cc(d.w[j], p[j] & mask);
+  d.w[7] = cc::addc(d.w[7], p[7] & mask);
+  return d;
+}
+
+// t[0..15] (a 512-bit value < p^2) -> t * 2^-256 mod p
+__device__ __forceinline__ Fq32 fq_redc(const uint32_t t[16]) {
+  const uint32_t p[8] = {FQ_P0, FQ_P1, FQ_P2, FQ_P3,
+                         FQ_P4, FQ_P5, FQ_P6, FQ_P7};
+  // u = u[0..7] + u8 2^256 is the window: after step i it holds
+  // (t mod 2^(256 + 32 (i + 1)) + M_i p) / 2^(32 (i + 1)) < 2^257
+  uint32_t u[8], u8 = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) u[j] = t[j];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    const uint32_t m = u[0] * FQ_NP0;
+    // even words of p: columns 0..7, carry into u8
+    u[0] = cc::mad_lo_cc(m, p[0], u[0]);
+    u[1] = cc::madc_hi_cc(m, p[0], u[1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+      u[j] = cc::madc_lo_cc(m, p[j], u[j]);
+      u[j + 1] = cc::madc_hi_cc(m, p[j], u[j + 1]);
+    }
+    u8 = cc::addc(u8, 0u);
+    // odd words of p: columns 1..8 (u + m p < 2^287: no carry out of u8)
+    u[1] = cc::mad_lo_cc(m, p[1], u[1]);
+    u[2] = cc::madc_hi_cc(m, p[1], u[2]);
+#pragma unroll
+    for (int j = 3; j < 7; j += 2) {
+      u[j] = cc::madc_lo_cc(m, p[j], u[j]);
+      u[j + 1] = cc::madc_hi_cc(m, p[j], u[j + 1]);
+    }
+    u[7] = cc::madc_lo_cc(m, p[7], u[7]);
+    u8 = cc::madc_hi(m, p[7], u8);
+    // u[0] is 0: shift down a word and bring in t[8 + i]
+#pragma unroll
+    for (int j = 0; j < 7; j++) u[j] = u[j + 1];
+    u[7] = cc::add_cc(u8, t[8 + i]);
+    u8 = cc::addc(0u, 0u);
+  }
+  Fq32 r;  // < 2p < 2^255, so u8 is 0 here
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.w[j] = u[j];
+  return fq_reduce_once(r);
+}
+
+// Montgomery product a * b * 2^-256 mod p
+__device__ __forceinline__ Fq32 fq_mul(const Fq32 &a, const Fq32 &b) {
+  uint32_t t[16];
+#pragma unroll
+  for (int j = 0; j < 16; j++) t[j] = 0;
+  // row i adds a * b_i into columns i..i+8; after it, t < 2^(32 (i + 9)),
+  // so column i + 8 is still 0 when the row starts and nothing carries
+  // out of it
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    const uint32_t bi = b.w[i];
+    t[i] = cc::mad_lo_cc(a.w[0], bi, t[i]);
+    t[i + 1] = cc::madc_hi_cc(a.w[0], bi, t[i + 1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+      t[i + j] = cc::madc_lo_cc(a.w[j], bi, t[i + j]);
+      t[i + j + 1] = cc::madc_hi_cc(a.w[j], bi, t[i + j + 1]);
+    }
+    t[i + 8] = cc::addc(0u, 0u);
+    t[i + 1] = cc::mad_lo_cc(a.w[1], bi, t[i + 1]);
+    t[i + 2] = cc::madc_hi_cc(a.w[1], bi, t[i + 2]);
+#pragma unroll
+    for (int j = 3; j < 7; j += 2) {
+      t[i + j] = cc::madc_lo_cc(a.w[j], bi, t[i + j]);
+      t[i + j + 1] = cc::madc_hi_cc(a.w[j], bi, t[i + j + 1]);
+    }
+    t[i + 7] = cc::madc_lo_cc(a.w[7], bi, t[i + 7]);
+    t[i + 8] = cc::madc_hi(a.w[7], bi, t[i + 8]);
+  }
+  return fq_redc(t);
+}
+
+// Montgomery square a^2 * 2^-256 mod p
+__device__ __forceinline__ Fq32 fq_sqr(const Fq32 &a) {
+  uint32_t t[16];
+#pragma unroll
+  for (int j = 0; j < 16; j++) t[j] = 0;
+  // cross products: row i adds a_i * a_j (j > i) into columns 2i+1..i+8;
+  // after it, t < 2^(32 (i + 9)), so column i + 8 is 0 when it starts
+#pragma unroll
+  for (int i = 0; i < 7; i++) {
+    const uint32_t ai = a.w[i];
+    // chain over j = i+1, i+3, ...: columns 2i+1 .. i+j_last+1
+    t[2 * i + 1] = cc::mad_lo_cc(a.w[i + 1], ai, t[2 * i + 1]);
+    t[2 * i + 2] = cc::madc_hi_cc(a.w[i + 1], ai, t[2 * i + 2]);
+#pragma unroll
+    for (int j = i + 3; j < 8; j += 2) {
+      t[i + j] = cc::madc_lo_cc(a.w[j], ai, t[i + j]);
+      t[i + j + 1] = cc::madc_hi_cc(a.w[j], ai, t[i + j + 1]);
+    }
+    if ((7 - i) % 2 == 0) t[i + 8] = cc::addc(0u, 0u);  // ended at i + 7
+    // chain over j = i+2, i+4, ...: columns 2i+2 .. i+j_last+1
+    if (i + 2 < 8) {
+      t[2 * i + 2] = cc::mad_lo_cc(a.w[i + 2], ai, t[2 * i + 2]);
+      t[2 * i + 3] = cc::madc_hi_cc(a.w[i + 2], ai, t[2 * i + 3]);
+#pragma unroll
+      for (int j = i + 4; j < 8; j += 2) {
+        t[i + j] = cc::madc_lo_cc(a.w[j], ai, t[i + j]);
+        t[i + j + 1] = cc::madc_hi_cc(a.w[j], ai, t[i + j + 1]);
+      }
+      if ((7 - i) % 2 == 1) t[i + 8] = cc::addc(t[i + 8], 0u);  // ended at i + 7
+    }
+  }
+  // double the cross products (2 sum < a^2 < 2^512: no carry out)
+  t[0] = cc::add_cc(t[0], t[0]);
+#pragma unroll
+  for (int j = 1; j < 15; j++) t[j] = cc::addc_cc(t[j], t[j]);
+  t[15] = cc::addc(t[15], t[15]);
+  // add the squares a_i^2 into columns 2i, 2i+1
+  t[0] = cc::mad_lo_cc(a.w[0], a.w[0], t[0]);
+  t[1] = cc::madc_hi_cc(a.w[0], a.w[0], t[1]);
+#pragma unroll
+  for (int i = 1; i < 7; i++) {
+    t[2 * i] = cc::madc_lo_cc(a.w[i], a.w[i], t[2 * i]);
+    t[2 * i + 1] = cc::madc_hi_cc(a.w[i], a.w[i], t[2 * i + 1]);
+  }
+  t[14] = cc::madc_lo_cc(a.w[7], a.w[7], t[14]);
+  t[15] = cc::madc_hi(a.w[7], a.w[7], t[15]);
+  return fq_redc(t);
+}
+
+__device__ __forceinline__ bool fq_is_zero(const Fq32 &a) {
+  return (a.w[0] | a.w[1] | a.w[2] | a.w[3] | a.w[4] | a.w[5] | a.w[6] |
+          a.w[7]) == 0;
+}
+
+__device__ __forceinline__ Fq32 fq_one_mont() {
+  return Fq32{{FQ_ONE0, FQ_ONE1, FQ_ONE2, FQ_ONE3, FQ_ONE4, FQ_ONE5, FQ_ONE6,
+               FQ_ONE7}};
+}
+
+__device__ __forceinline__ Fq32 fq_zero() {
+  return Fq32{{0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
+}
+
+// row `row` of a (..., 32) u8 tensor, read as four u64 loads
+__device__ __forceinline__ Fq32 fq_load(const uint64_t *p, int64_t row) {
+  Fq32 r;
+  const uint64_t *q = p + 4 * row;
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    const uint64_t v = q[j];
+    r.w[2 * j] = static_cast<uint32_t>(v);
+    r.w[2 * j + 1] = static_cast<uint32_t>(v >> 32);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fq_store(uint64_t *p, int64_t row,
+                                         const Fq32 &a) {
+  uint64_t *q = p + 4 * row;
+#pragma unroll
+  for (int j = 0; j < 4; j++)
+    q[j] = static_cast<uint64_t>(a.w[2 * j]) |
+           (static_cast<uint64_t>(a.w[2 * j + 1]) << 32);
 }
 
 }  // namespace bn254

@@ -110,13 +110,14 @@ def lib() -> ctypes.CDLL:
             handle.zk_twiddle_mul.argtypes = [vp, vp, vp, i64, i64, i64, vp]
             handle.zk_redc34.argtypes = [vp, vp, i64, vp]
             handle.zk_g1_add.argtypes = [vp] * 9 + [i64, i32, vp]
-            handle.zk_g1_double.argtypes = [vp] * 6 + [i64, vp]
+            handle.zk_g1_bucket_add.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
+            handle.zk_g1_double.argtypes = [vp] * 6 + [i64, i32, vp]
             handle.zk_butterfly_rows.argtypes = [vp] * 5 + [i64, vp]
             handle.zk_dit_stage.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             for fn in (handle.zk_mont_mul, handle.zk_twiddle_mul,
                        handle.zk_redc34, handle.zk_g1_add,
-                       handle.zk_g1_double, handle.zk_butterfly_rows,
-                       handle.zk_dit_stage):
+                       handle.zk_g1_bucket_add, handle.zk_g1_double,
+                       handle.zk_butterfly_rows, handle.zk_dit_stage):
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib

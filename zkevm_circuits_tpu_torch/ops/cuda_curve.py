@@ -1,15 +1,23 @@
-"""Kernels K5 (BN254 G1 Jacobian addition over Fq, a = 0, three modes)
-and K6 (G1 Jacobian doubling), with their plain PyTorch versions.
+"""Kernels K5 (BN254 G1 Jacobian addition over Fq, a = 0, three modes and
+a bucket-step form) and K6 (G1 Jacobian doubling, repeated), with their
+plain PyTorch versions.
 
 A CUDA tensor goes to the kernel (csrc/curve.cu), a CPU tensor to the
-plain version; there is no other route.  K5's modes, as in the TPU kernel:
-  complete   (23 muls) no preconditions; P = Q, P = -Q and infinity are
-             resolved by the select ladder of crypto/curve.py::g1_add,
-             whose bytes it reproduces;
-  incomplete (16 muls) operands distinct or at infinity;
-  affine     (6 muls)  z in {0, mont(1)}, operands distinct or at infinity.
+plain version; there is no other route.  K5's modes, as in the TPU kernel
+(products + squarings):
+  complete   (11 + 5, and the doubling's 2 + 5 where P = Q) no
+             preconditions; P = Q, P = -Q and infinity are resolved by the
+             select ladder of crypto/curve.py::g1_add, whose bytes it
+             reproduces;
+  incomplete (11 + 5) operands distinct or at infinity;
+  affine     (4 + 2)  z in {0, mont(1)}, operands distinct or at infinity.
+K5's bucket-step form (`g1_bucket_add`) is one step of the MSM's bucket
+accumulation, in place: bucket [c, l, w, d] += point [l] with the complete
+add wherever the digit d = digits[c, l, w] is not 0.  Its own launch
+counter is LAUNCHES["g1_bucket_add"].
 
-K6 is dbl-2009-l (7 muls); infinity (z = 0) stays z = 0.
+K6 is dbl-2009-l (2 + 5); infinity (z = 0) stays z = 0.  `times=k`
+applies it k times in one launch (2^k P).
 
 The plain versions run the same formulas on 16-bit limbs (cuda_field),
 with the independent products of each step stacked into one multiply.
@@ -121,9 +129,17 @@ def g1_add_plain(ax, ay, az, bx, by, bz, mode: str = "complete"):
     return from_limbs(x3), from_limbs(y3), from_limbs(z3)
 
 
-def g1_double_plain(ax, ay, az):
+def g1_double_plain(ax, ay, az, times: int = 1):
     """Plain version of K6 over (..., 32) u8 Montgomery Fq coordinates:
-    2P for a = 0 (dbl-2009-l); z3 = 2 Y Z, so infinity stays infinity."""
+    2^times P for a = 0, one dbl-2009-l after another."""
+    _check_times(times)
+    for _ in range(times):
+        ax, ay, az = _double_once(ax, ay, az)
+    return ax, ay, az
+
+
+def _double_once(ax, ay, az):
+    """2P (dbl-2009-l); z3 = 2 Y Z, so infinity stays infinity."""
     cs = _consts(FIELD_FQ, ax.device)
     x, y, z = (to_limbs(t) for t in (ax, ay, az))
     add = lambda a, b: add_limbs(a, b, cs)  # noqa: E731
@@ -154,6 +170,19 @@ def _one_mont_fq():
 
 
 _ONE_MONT_FQ = _one_mont_fq()
+
+
+def g1_bucket_add_plain(bx, by, bz, digits, px, py, pz) -> None:
+    """Plain version of K5's bucket-step form, in place: gather the buckets
+    the nonzero digits select, add the lanes' points (complete mode),
+    scatter the sums back.  Bucket coordinates (c, lanes, n_win, n_buck,
+    32), digits (c, lanes, n_win), points (lanes, 32)."""
+    ci, li, wi = (digits != 0).nonzero(as_tuple=True)
+    d = digits[ci, li, wi].long()
+    out = g1_add_plain(*(t[ci, li, wi, d] for t in (bx, by, bz)),
+                       *(t[li] for t in (px, py, pz)), mode="complete")
+    for t, o in zip((bx, by, bz), out):
+        t[ci, li, wi, d] = o
 
 
 # ---------------------------------------------------------------------------
@@ -198,18 +227,65 @@ def g1_add(ax, ay, az, bx, by, bz, mode: str = "complete"):
     return g1_add_plain(ax, ay, az, bx, by, bz, mode)
 
 
-def g1_double_cuda(ax, ay, az):
+def g1_bucket_add_cuda(bx, by, bz, digits, px, py, pz) -> None:
+    """K5's bucket-step form on the card; updates bx, by, bz in place, so
+    they must be contiguous already."""
+    shape = bx.shape
+    if len(shape) != 5 or shape[-1] != 32:
+        raise ValueError(f"g1_bucket_add: buckets have shape {tuple(shape)}, "
+                         "expected (c, lanes, n_win, n_buck, 32)")
+    c, lanes, n_win, n_buck = shape[:4]
+    if n_buck > 256:
+        raise ValueError(f"g1_bucket_add: {n_buck} buckets, at most 256")
+    for name, t in (("bx", bx), ("by", by), ("bz", bz)):
+        if t.shape != shape:
+            raise ValueError(f"g1_bucket_add: {name} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
+        _check_rows(t, f"g1_bucket_add {name}")
+    pts = _coords_in("g1_bucket_add", ("px", "py", "pz"), (px, py, pz))
+    if pts[0].shape != (lanes, 32):
+        raise ValueError(f"g1_bucket_add: points have shape "
+                         f"{tuple(pts[0].shape)}, expected ({lanes}, 32)")
+    if digits.shape != (c, lanes, n_win) or digits.dtype != torch.uint8 \
+            or not digits.is_cuda:
+        raise ValueError(f"g1_bucket_add: digits must be ({c}, {lanes}, "
+                         f"{n_win}) uint8 on the card, got "
+                         f"{tuple(digits.shape)} {digits.dtype}")
+    digits = digits.contiguous()
+    build.check(build.lib().zk_g1_bucket_add(
+        bx.data_ptr(), by.data_ptr(), bz.data_ptr(), digits.data_ptr(),
+        *(t.data_ptr() for t in pts), digits.numel(), lanes, n_win, n_buck,
+        _stream()), "g1_bucket_add")
+    LAUNCHES["g1_bucket_add"] += 1
+
+
+def g1_bucket_add(bx, by, bz, digits, px, py, pz) -> None:
+    """K5's bucket-step form, in place: CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    if bx.is_cuda:
+        return g1_bucket_add_cuda(bx, by, bz, digits, px, py, pz)
+    return g1_bucket_add_plain(bx, by, bz, digits, px, py, pz)
+
+
+def _check_times(times: int) -> None:
+    if times < 1:
+        raise ValueError(f"g1_double: times must be >= 1, got {times}")
+
+
+def g1_double_cuda(ax, ay, az, times: int = 1):
+    _check_times(times)
     ins = _coords_in("g1_double", ("ax", "ay", "az"), (ax, ay, az))
     outs = _coords_out(ax)
     build.check(build.lib().zk_g1_double(
         *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-        ax.numel() // 32, _stream()), "g1_double")
+        ax.numel() // 32, times, _stream()), "g1_double")
     LAUNCHES["g1_double"] += 1
     return tuple(outs)
 
 
-def g1_double(ax, ay, az):
-    """K6: CUDA tensors launch the kernel, CPU tensors take the plain version."""
+def g1_double(ax, ay, az, times: int = 1):
+    """K6, 2^times P: CUDA tensors launch the kernel, CPU tensors take the
+    plain version."""
     if ax.is_cuda:
-        return g1_double_cuda(ax, ay, az)
-    return g1_double_plain(ax, ay, az)
+        return g1_double_cuda(ax, ay, az, times)
+    return g1_double_plain(ax, ay, az, times)

@@ -32,7 +32,8 @@ RED_LIMBS = 17  # the NTT's wide REDC divides by 2^272 = 2^(16 * 17)
 
 # kernel launches, counted where each wrapper launches its kernel
 LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0,
-            "butterfly_stage": 0, "g1_add": 0, "g1_double": 0}
+            "butterfly_stage": 0, "g1_add": 0, "g1_bucket_add": 0,
+            "g1_double": 0}
 
 
 def reset_launches() -> None:

@@ -7,7 +7,9 @@ zkevm_circuits_tpu/poly/msm.py, the lane-private scan path of `msm()`).
     256-bucket reduction, not the points, would dominate the work.
   * Lane-private buckets: points stream in blocks of `default_lanes(n)`; each
     (lane, window) pair owns a private 256-entry bucket array, so a step is
-    one conflict-free gather -> complete add (kernel K5) -> scatter.
+    one conflict-free in-place bucket update (kernel K5's bucket form:
+    bucket [c, l, w, digit] += point [l]).  Digit 0 adds nothing: bucket 0
+    has weight 0 and is never read.
   * Several scalar columns against the same points share every step (the
     column axis is one more batch axis), so a multi-column commit costs the
     sequential steps of one MSM.
@@ -15,7 +17,8 @@ zkevm_circuits_tpu/poly/msm.py, the lane-private scan path of `msm()`).
     folds them with a sequential scan to keep its XLA graph small; eager
     PyTorch has no graph, and a tree launches log2 of the adds).  The
     bucket weighting sum_b b B_b runs over the 8 bits of b, then a Horner
-    over bits and one over windows (8 doublings per window step).
+    over bits and one over windows (8 doublings per window step, one K6
+    launch).
 
 Results are equal to the reference's as group elements; compare them in
 affine form.  Scalars are (n, 32) uint8 little-endian bytes (plain, not
@@ -31,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..crypto.curve import G1, g1_add, g1_double, g1_infinity
+from ..crypto.curve import G1, g1_add, g1_bucket_add, g1_double, g1_infinity
 
 SMALL_N = 1 << 11  # below this, 4-bit windows
 BUCKET_BYTES_BUDGET = 4 << 30  # bucket arrays of one column group
@@ -79,9 +82,9 @@ def _bucket_weighted_sum(buckets: G1, wbits: int) -> G1:
 
 
 def _window_digits(scalars_u8: torch.Tensor, wbits: int) -> torch.Tensor:
-    """(..., 32) scalar bytes -> (..., 256 / wbits) window digits, least
-    significant window first."""
-    d = scalars_u8.to(torch.int64)
+    """(..., 32) scalar bytes -> (..., 256 / wbits) uint8 window digits,
+    least significant window first."""
+    d = scalars_u8.to(torch.uint8)
     if wbits == 8:
         return d
     return torch.stack((d & 15, d >> 4), dim=-1).reshape(*d.shape[:-1], 64)
@@ -102,28 +105,19 @@ def _msm_group(points: G1, scalars_u8: torch.Tensor, lanes: int,
         scalars_u8 = torch.cat(
             [scalars_u8, scalars_u8.new_zeros(c, pad, 32)], dim=1)
     pts = [t.reshape(steps, lanes, 32) for t in (px, py, pz)]
-    digits = _window_digits(scalars_u8, wbits).reshape(c, steps, lanes, n_win)
+    # (steps, c, lanes, n_win): each step's digits one contiguous block
+    digits = _window_digits(scalars_u8, wbits).reshape(
+        c, steps, lanes, n_win).transpose(0, 1).contiguous()
 
-    acc = list(g1_infinity((c, lanes, n_win, n_buck), dev))
-    ci = torch.arange(c, device=dev)[:, None, None]
-    li = torch.arange(lanes, device=dev)[None, :, None]
-    wi = torch.arange(n_win, device=dev)[None, None, :]
-    shape = (c, lanes, n_win, 32)
+    acc = g1_infinity((c, lanes, n_win, n_buck), dev)
     for s in range(steps):
-        dig = digits[:, s]
-        cur = G1(*(a[ci, li, wi, dig] for a in acc))
-        pt = G1(*(t[s][None, :, None, :].expand(shape) for t in pts))
-        out = g1_add(cur, pt)
-        for a, o in zip(acc, out):
-            a[ci, li, wi, dig] = o
-    buckets = g1_tree_sum(G1(*acc), axis=1)  # (c, n_win, n_buck)
+        g1_bucket_add(acc, digits[s], G1(*(t[s] for t in pts)))
+    buckets = g1_tree_sum(acc, axis=1)  # (c, n_win, n_buck)
     wsum = _bucket_weighted_sum(buckets, wbits)  # (c, n_win) window sums
     # Horner from the most significant window down
     res = G1(*(t[:, n_win - 1] for t in wsum))
     for w in range(n_win - 2, -1, -1):
-        for _ in range(wbits):
-            res = g1_double(res)
-        res = g1_add(res, G1(*(t[:, w] for t in wsum)))
+        res = g1_add(g1_double(res, wbits), G1(*(t[:, w] for t in wsum)))
     return res
 
 

@@ -12,10 +12,10 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. six paths, each with the launch counts set to 0 just before it and
+  3. eight paths, each with the launch counts set to 0 just before it and
      read just after it; the run fails if a kernel the path names was not
      launched on it (K4 on the two mesh paths, every other kernel, both
-     forms of K5 included, on all six):
+     forms of K5 included, on all eight):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -28,6 +28,16 @@ Phases, one line each (the process exits non-zero on any failure):
                  advice columns), 327 permutations of seeded messages:
                  SRS, keygen, prove, verify, per-phase seconds, peak
                  device memory;
+     evm_k9      the EVM circuit at k=9 over plonk/demo.py's program,
+                 through the port's tracer and builder: its sha256 equals
+                 the reference's proof (golden), it verifies, and a memory
+                 byte flipped in the MSTORE row (with the RW table
+                 agreeing) is rejected;
+     evm_k14     the EVM circuit at k=14, full width (434 advice columns,
+                 1,694 gate polynomials, 12 logUps), seeded transactions of
+                 looping contracts filling >= 90% of the rows with RW rows
+                 (service.bench_circuits.evm_workload): SRS, keygen, prove,
+                 verify, per-phase seconds, peak device memory;
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -603,6 +613,107 @@ def prove_keccak_k16(dev, log, gpu: str) -> list:
     return [] if ok else ["keccak k=16 proof did not verify"]
 
 
+def _mem_byte_flip(circuit_cls):
+    """`circuit_cls` with the last memory byte of the MSTORE row set to 0x99
+    (tests/test_evm_circuit.py::test_evm_circuit_catches_wrong_mem_byte)
+    and the RW table's row of that memory write given the same byte, so
+    that every logUp input stays in its table and only the word's gate
+    ('MEM word rlc') fails: the prover makes a proof, the verifier must
+    reject it."""
+    from zkevm_circuits_tpu_torch.crypto.field import fr
+
+    F = fr()
+    bad = F.from_int(0x99 * F.R % F.modulus)
+
+    class Corrupt(circuit_cls):
+        def synthesize(self, phase, n, challenges, instances):
+            cols = super().synthesize(phase, n, challenges, instances)
+            row = next(i for i, s in enumerate(self.steps)
+                       if s.exec_state == "MSTORE")
+            if phase == 0:
+                col, at = self.c_mem[31], row
+            else:
+                last = self.steps[row].rw_indices[-1]
+                col = self.t_val
+                at = next(i for i, r in enumerate(self._rw_rows)
+                          if r.rw_counter == last)
+            arr = np.array(cols[col])
+            arr[at] = bad
+            cols[col] = arr
+            return cols
+
+    return Corrupt
+
+
+def prove_evm_k9(dev, log) -> list:
+    """The EVM circuit at k=9 over plonk/demo.py's golden program: its
+    sha256 equals the reference's proof (golden), it verifies, and the
+    memory-byte corruption is rejected."""
+    from zkevm_circuits_tpu_torch.circuits.evm import EvmCircuit, EvmParams
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.service.bench_circuits import evm_witness
+
+    fails = []
+    k = demo.EVM_GOLDEN_K
+    params = EvmParams(target_steps=demo.EVM_GOLDEN_TARGET_STEPS,
+                       rw_target=demo.EVM_GOLDEN_RW_TARGET)
+    b = evm_witness(demo.EVM_GOLDEN_CODE, demo.EVM_GOLDEN_SENDER,
+                    demo.EVM_GOLDEN_CONTRACT)
+    steps, rws = b.steps, b.rws.rws
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=demo.EVM_GOLDEN_TAU, device=dev)
+    pk, vk = keygen(EvmCircuit(steps, rws, params), k, srs, device=dev)
+    t1 = time.perf_counter()
+    proof = prove(pk, EvmCircuit(steps, rws, params), [], srs,
+                  rng=np.random.default_rng(demo.EVM_GOLDEN_SEED), device=dev)
+    t2 = time.perf_counter()
+    digest = hashlib.sha256(proof).hexdigest()
+    golden = (digest == demo.EVM_GOLDEN_SHA256
+              and len(proof) == demo.EVM_GOLDEN_LEN)
+    ok = verify(vk, [], proof)
+    bad = prove(pk, _mem_byte_flip(EvmCircuit)(steps, rws, params), [], srs,
+                rng=np.random.default_rng(1), device=dev)
+    corrupt = verify(vk, [], bad)
+    log(f"[evm k=9] steps={len(steps)} setup+keygen {t1 - t0:.2f} s prove "
+        f"{t2 - t1:.2f} s proof_bytes={len(proof)} sha256={digest} "
+        f"golden={golden} verify={ok} mem_byte_flip={corrupt}")
+    if not golden:
+        fails.append("evm k=9 proof differs from the golden")
+    if not ok or corrupt:
+        fails.append("evm k=9 verifier verdicts wrong")
+    return fails
+
+
+def prove_evm_k14(dev, log, gpu: str) -> list:
+    """The EVM circuit at k=14, full width, over the seeded looping-contract
+    workload of service.bench_circuits.evm_workload (RW rows >= 90% of the
+    usable rows)."""
+    from zkevm_circuits_tpu_torch.service.bench_circuits import evm_prove_bench
+
+    r = evm_prove_bench(14, seed=SEED, device=dev, log=log)
+    cs, w = r["cs"], r["workload"]
+    log(f"[evm k=14] card={gpu!r} txs={w['txs']} steps={w['steps']} "
+        f"rw_rows={w['rw_rows']} rw_fill={w['rw_fill']:.4f} "
+        f"advice={cs.num_advice} gate_polys={sum(len(g.polys) for g in cs.gates)} "
+        f"logups={len(cs.logups)} logup_inputs={sum(len(lg.inputs) for lg in cs.logups)} "
+        f"workload {w['workload_s']:.2f} s srs {r['srs_s']:.2f} s keygen "
+        f"{r['keygen_s']:.2f} s prove {r['prove_s']:.2f} s verify "
+        f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+    log(f"[evm k=14] prove phases (s, card={gpu!r}): "
+        f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
+    log(f"[evm k=14] keygen phases (s, card={gpu!r}): "
+        f"{json.dumps({k_: round(v, 3) for k_, v in r['keygen_phases'].items()})}")
+    fails = [] if r["ok"] else ["evm k=14 proof did not verify"]
+    if w["rw_fill"] < 0.9:
+        fails.append(f"evm k=14 workload filled {w['rw_fill']:.4f} of the rows")
+    return fails
+
+
 KERNELS = [
     ("K1", "mont_mul", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:178"),
@@ -662,6 +773,8 @@ def main() -> int:
     drive_path("keccak_k9", lambda: prove_keccak_k9(dev, log), single)
     drive_path("state_k16", lambda: prove_state(dev, log, gpu, digests), single)
     drive_path("keccak_k16", lambda: prove_keccak_k16(dev, log, gpu), single)
+    drive_path("evm_k9", lambda: prove_evm_k9(dev, log), single)
+    drive_path("evm_k14", lambda: prove_evm_k14(dev, log, gpu), single)
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:

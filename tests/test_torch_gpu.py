@@ -2,7 +2,8 @@
 version on the card, byte for byte (K5's three modes, its warp vote and
 its bucket-step form, K6 once and eight times), the sharded ops on an
 NCCL group of one rank against the unsharded ones, the MSM's K6 launch
-count, and the k=5 demo and k=9 Keccak golden proofs on the card.
+count, and the k=5 demo, k=9 Keccak and k=9 EVM golden proofs on the
+card.
 
 They skip without a card.  This file imports no JAX (the card's machine
 has none); run it there with
@@ -290,3 +291,25 @@ def test_demo_proof_on_card_matches_golden(dev):
                   rng=np.random.default_rng(demo.GOLDEN_SEED))
     assert hashlib.sha256(proof).hexdigest() == demo.GOLDEN_SHA256
     assert verify(vk, [[demo.A_IN]], proof)
+
+
+def test_evm_k9_proof_on_card_matches_golden(dev):
+    from zkevm_circuits_tpu_torch.circuits.evm import EvmCircuit, EvmParams
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.service.bench_circuits import evm_witness
+
+    b = evm_witness(demo.EVM_GOLDEN_CODE, demo.EVM_GOLDEN_SENDER,
+                    demo.EVM_GOLDEN_CONTRACT)
+    params = EvmParams(target_steps=demo.EVM_GOLDEN_TARGET_STEPS,
+                       rw_target=demo.EVM_GOLDEN_RW_TARGET)
+    srs = Srs.unsafe_setup(demo.EVM_GOLDEN_K, tau=demo.EVM_GOLDEN_TAU)
+    pk, vk = keygen(EvmCircuit(b.steps, b.rws.rws, params), demo.EVM_GOLDEN_K, srs)
+    proof = prove(pk, EvmCircuit(b.steps, b.rws.rws, params), [], srs,
+                  rng=np.random.default_rng(demo.EVM_GOLDEN_SEED))
+    assert len(proof) == demo.EVM_GOLDEN_LEN
+    assert hashlib.sha256(proof).hexdigest() == demo.EVM_GOLDEN_SHA256
+    assert verify(vk, [], proof)

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from zkevm_circuits_tpu_torch.crypto.field import fr
+from zkevm_circuits_tpu_torch.crypto.params import FR_MODULUS as R
 from zkevm_circuits_tpu_torch.plonk import demo
 from zkevm_circuits_tpu_torch.plonk.keygen import keygen
 from zkevm_circuits_tpu_torch.plonk.prover import prove
@@ -147,3 +149,50 @@ def test_state_k8_proof_byte_identical():
     proof = prove(pk, tcirc, [], srs, rng=np.random.default_rng(7), device="cpu")
     assert proof == ref
     assert verify(vk, [], proof)
+
+
+def _reference_multiplicities(t_u, a_us, n):
+    """The reference prover's multiplicity mapping (plonk/prover.py, the
+    logUp section), over numpy digit rows."""
+    u = t_u.shape[0]
+    uniq, inv = np.unique(np.concatenate([t_u] + a_us, axis=0), axis=0,
+                          return_inverse=True)
+    inv = inv.reshape(-1)
+    first_idx = np.full(uniq.shape[0], n, np.int64)
+    np.minimum.at(first_idx, inv[:u], np.arange(u))
+    mapped = first_idx[inv[u:]]
+    assert not (mapped >= n).any()
+    return np.bincount(mapped, minlength=n)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_logup_multiplicities_match_reference_mapping(seed):
+    from zkevm_circuits_tpu_torch.plonk.prover import _logup_multiplicities
+
+    rng = np.random.default_rng(seed)
+    n, u, m = 256, 250, 5
+    distinct = rng.integers(0, 256, size=(40, 32), dtype=np.uint8)
+    distinct[0] = 0
+    t_u = distinct[rng.integers(0, 40, size=u)]  # repeated table values
+    a_us = [distinct[rng.integers(0, 40 if j else 1, size=u)] for j in range(m)]
+    got = _logup_multiplicities("t", torch.as_tensor(t_u),
+                                torch.as_tensor(np.stack(a_us)), n)
+    assert np.array_equal(got.numpy(), _reference_multiplicities(t_u, a_us, n))
+    assert int(got.sum()) == m * u
+    a_us[3][17] = 7  # a value of no table row
+    with pytest.raises(ValueError, match="input value not in table"):
+        _logup_multiplicities("t", torch.as_tensor(t_u),
+                              torch.as_tensor(np.stack(a_us)), n)
+
+
+def test_sum_rows_is_the_field_sum():
+    from zkevm_circuits_tpu_torch.plonk.prover import _sum_rows
+
+    F = fr()
+    rng = np.random.default_rng(4)
+    for m in (1, 2, 5, 8):
+        vals = [[int(rng.integers(0, 1 << 62)) * (R // (1 << 62)) % R
+                 for _ in range(6)] for _ in range(m)]
+        x = torch.as_tensor(np.stack([F.from_ints(v) for v in vals]))
+        want = [sum(col) % R for col in zip(*vals)]
+        assert F.to_ints(_sum_rows(x)) == want

@@ -2,7 +2,9 @@
 zkevm_circuits_tpu_torch/, chip_smoke.py or msm_state_timing.py imports
 JAX or the JAX package, or loads the JAX tree's native library; every
 module imports without a card or a compiler; the kernel build directory
-is git-ignored; each kernel source names the TPU kernel it replaces."""
+is git-ignored; each kernel source names the TPU kernel it replaces.  The
+EVM circuit's subpackages (types, tracer, witness, circuits) are held to
+the same rules."""
 
 import ast
 import importlib
@@ -28,10 +30,32 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
+SUBPACKAGES = ("circuits", "crypto", "ops", "parallel", "plonk", "poly",
+               "service", "tracer", "types", "witness")
+
+
 def test_rules_cover_every_subpackage():
     """parallel/ (the sharded prover) is held to the same rules."""
-    for sub in ("crypto", "ops", "parallel", "plonk", "poly", "service"):
+    for sub in SUBPACKAGES:
         assert any(p.parent == PKG / sub for p in FILES), sub
+    assert sorted(d.name for d in PKG.iterdir()
+                  if d.is_dir() and (d / "__init__.py").exists()) == sorted(SUBPACKAGES)
+
+
+# the EVM circuit's witness pipeline and circuits: each module the rules
+# below cover, by subpackage
+PIPELINE = {
+    "types": ("__init__", "evm", "rlp", "bytecode", "transaction"),
+    "tracer": ("__init__", "evm"),
+    "witness": ("trace", "builder", "test_ctx", "block", "rw"),
+    "circuits": ("evm", "block", "state", "keccak"),
+}
+
+
+@pytest.mark.parametrize("sub", sorted(PIPELINE))
+def test_rules_cover_evm_pipeline(sub):
+    for mod in PIPELINE[sub]:
+        assert PKG / sub / f"{mod}.py" in FILES, (sub, mod)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -40,6 +40,26 @@ KECCAK_GOLDEN_MESSAGES = (b"abc",)
 KECCAK_GOLDEN_SHA256 = "61910750f7403e117d53a961c58cd2b9a42689ddf05b23d8089cf89e39c4aa5a"
 KECCAK_GOLDEN_LEN = 139360
 
+# The EVM circuit's k=9 proof: circuits/evm.py::EvmCircuit with
+# EvmParams(target_steps=40, rw_target=256) over one transaction from
+# EVM_GOLDEN_SENDER to EVM_GOLDEN_CONTRACT (no value, no calldata) running
+# PUSH2 0xBEEF, PUSH1 7, MSTORE, PUSH1 7, MLOAD, PUSH1 5, ADD, POP, STOP,
+# traced by tracer.Interpreter and replayed by CircuitInputBuilder, with
+# Srs.unsafe_setup(9, tau=0xBE2C4), no instances and
+# rng=np.random.default_rng(7): sha256 and length of the reference's proof
+# (the JAX package on the CPU, native library built); the port's proof
+# must equal it.
+EVM_GOLDEN_K = 9
+EVM_GOLDEN_TAU = 0xBE2C4
+EVM_GOLDEN_SEED = 7
+EVM_GOLDEN_SENDER = 0xCAFE
+EVM_GOLDEN_CONTRACT = 0xC0DE
+EVM_GOLDEN_CODE = bytes.fromhex("61beef6007526007516005015000")
+EVM_GOLDEN_TARGET_STEPS = 40
+EVM_GOLDEN_RW_TARGET = 256
+EVM_GOLDEN_SHA256 = "487c95f60e07c8b469ba6ed3497d4176e47b759452a0f1f6bc94b226dfba6e0b"
+EVM_GOLDEN_LEN = 134816
+
 
 def _mont(vals):
     return F.from_ints([v % R * F.R % R for v in vals])

@@ -94,6 +94,37 @@ def _permuted_lookup_columns(a_dig: np.ndarray, s_dig: np.ndarray, u: int, n: in
     return a_pad, s_pad
 
 
+def _logup_multiplicities(name: str, t_u: torch.Tensor, a_u: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """(n,) int64 counts: m[i] is how many input rows equal table row i,
+    each value counted at its first table row (the reference's np.unique
+    mapping).  `t_u` is (u, 32), `a_u` (inputs, u, 32), the usable rows."""
+    u = t_u.shape[0]
+    rows = torch.cat([t_u, a_u.reshape(-1, 32)]).view(torch.int64)
+    uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
+    first_idx = torch.full((uniq.shape[0],), n, dtype=torch.int64, device=rows.device)
+    first_idx.scatter_reduce_(0, inv[:u], torch.arange(u, device=rows.device),
+                              "amin")
+    a_ids = inv[u:]
+    mapped = first_idx[a_ids]
+    missing = mapped >= n
+    if missing.any():
+        bad = uniq[a_ids[missing.nonzero()[0, 0]]].view(torch.uint8)
+        raise ValueError(
+            f"logup '{name}': input value not in table "
+            f"(mont digits {F.to_int(bad)})"
+        )
+    return torch.bincount(mapped, minlength=n)
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """The field sum over the first axis of (m, n, 32), pairwise."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        x = torch.cat([F.add(x[:half], x[half:2 * half]), x[2 * half:]])
+    return x[0]
+
+
 def _compress(exprs, theta, ev: Evaluator, shape, device):
     """Horner fold acc = acc * theta + expr over the expression list;
     `theta` is an int challenge or a Montgomery (32,) tensor."""
@@ -279,35 +310,19 @@ def prove(
     # ---- logup lookups: compress + multiplicities (committed pre-beta) ---------
     logup_data = []
     for lg in cs.logups:
-        a_list = [_compress(tup, theta, ev_h, (n, 32), dev) for tup in lg.inputs]
+        a = torch.stack([_compress(tup, theta, ev_h, (n, 32), dev)
+                         for tup in lg.inputs])
         t_evals = _compress(lg.table, theta, ev_h, (n, 32), dev)
-        t_u = _host(t_evals)[:u]
-        a_us = [_host(a)[:u] for a in a_list]
-        uniq, inv = np.unique(
-            np.concatenate([t_u] + a_us, axis=0), axis=0, return_inverse=True
-        )
-        inv = inv.reshape(-1)
-        t_ids = inv[:u]
-        first_idx = np.full(uniq.shape[0], n, np.int64)
-        np.minimum.at(first_idx, t_ids, np.arange(u))
-        a_ids = inv[u:]
-        mapped = first_idx[a_ids]
-        if (mapped >= n).any():
-            bad = uniq[a_ids[np.argmax(mapped >= n)]]
-            raise ValueError(
-                f"logup '{lg.name}': input value not in table "
-                f"(mont digits {F.to_int(bad)})"
-            )
-        mult = np.bincount(mapped, minlength=n).astype(np.int64)
-        mult_dig = np.zeros((n, 32), np.uint8)
-        for b in range(8):  # counts < 2^64
-            mult_dig[:, b] = (mult >> (8 * b)) & 0xFF
-        m_col = blind(F.to_mont(torch.as_tensor(mult_dig, device=dev)))
-        logup_data.append(dict(a=a_list, t=t_evals, m=m_col,
+        mult = _logup_multiplicities(lg.name, t_evals[:u], a[:, :u], n)
+        mult_dig = torch.zeros((n, 32), dtype=torch.uint8, device=dev)
+        mult_dig[:, :8] = mult.view(torch.uint8).reshape(n, 8)  # counts < 2^63
+        m_col = blind(F.to_mont(mult_dig))
+        logup_data.append(dict(a=a, t=t_evals, m=m_col,
                                m_coeffs=intt_k(m_col)))
 
     commit_write([c for ld in lookup_data for c in (ld["ap_coeffs"], ld["sp_coeffs"])]
                  + [ld["m_coeffs"] for ld in logup_data])
+    _mark("lookup columns")
     beta = t.squeeze_challenge()
     gamma = t.squeeze_challenge()
     beta_m, gamma_m = F.scalar(beta, dev), F.scalar(gamma, dev)
@@ -347,19 +362,15 @@ def prove(
     row_lt_u = torch.arange(n, device=dev) < u
     zeros_n = F.zeros((n,), dev)
     for ld in logup_data:
-        hs = []
-        for a_evals in ld["a"]:
-            inv_a = F.batch_inv(F.add(a_evals, beta_m), axis=0)
-            hs.append(F.select(row_lt_u, inv_a, zeros_n))
+        # every input's inverses in one batch inversion along the rows
+        hs = F.select(row_lt_u, F.batch_inv(F.add(ld["a"], beta_m), axis=1),
+                      zeros_n)
         t_inv = F.batch_inv(F.add(ld["t"], beta_m), axis=0)
         h_t = F.select(row_lt_u, F.mul(ld["m"], t_inv), zeros_n)
         # phi[0] = 0; phi[i+1] = phi[i] + sum_j h_j[i] - h_t[i]
-        delta = zeros_n
-        for h in hs:
-            delta = F.add(delta, h)
-        delta = F.sub(delta, h_t)
+        delta = F.sub(_sum_rows(hs), h_t)
         phi = prefix_sum(delta)
-        hs = [blind(h) for h in hs]
+        hs = [blind(h) for h in hs.unbind(0)]
         h_t = blind(h_t)
         phi = blind(phi, u + 1)
         ld["hs"], ld["h_t"], ld["phi"] = hs, h_t, phi

@@ -6,21 +6,32 @@ workload that fills the usable rows of 2^k (memory write/read pairs over
 several call frames, so every lexicographic-ordering, range-decomposition
 and tag-rule path of the State circuit runs), then the real pipeline: SRS,
 keygen, prove (full SHPLONK proof), verify, with per-phase wall-clock.
+
+`evm_prove_bench(k, seed)` does the same for the EVM circuit over a
+seeded workload of looping contracts (`evm_workload`), traced by the
+port's Interpreter and replayed by its CircuitInputBuilder.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
 import torch
 
+from ..circuits.evm import EvmCircuit, EvmParams
 from ..circuits.state import StateCircuit, StateParams
+from ..crypto.keccak import keccak256
 from ..device import resolve
+from ..plonk.circuit import usable_rows
 from ..plonk.keygen import keygen
 from ..plonk.prover import prove
 from ..plonk.verifier import verify
 from ..poly.kzg import Srs
+from ..tracer import Account, Interpreter, StateDB, Tx
+from ..types import Bytecode
+from ..witness.builder import AccountState, CircuitInputBuilder
 from ..witness.rw import Rw, RwTag
 
 
@@ -65,8 +76,6 @@ def state_prove_bench(k: int = 18, tau: int = 0xB_E2C4, device=None,
 
     Returns {"k", "rows", "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
     "proof_bytes", "proof", "keygen_phases", "prove_phases"}."""
-    from ..plonk.circuit import usable_rows
-
     dev = resolve(device)
     n = 1 << k
     payload = usable_rows(n) - 8
@@ -108,5 +117,205 @@ def state_prove_bench(k: int = 18, tau: int = 0xB_E2C4, device=None,
         "k": k, "rows": payload, "srs_s": srs_s, "keygen_s": keygen_s,
         "prove_s": prove_s, "verify_s": verify_s, "ok": bool(ok),
         "proof_bytes": len(proof), "proof": proof,
+        "keygen_phases": keygen_phases, "prove_phases": prove_phases,
+    }
+
+
+# ---------------------------------------------------------------------------
+# EVM workload: looping contracts over the opcodes the standalone EVM
+# circuit proves (no opcode that needs another circuit's table)
+EVM_SENDER = 0xCAFE
+EVM_CONTRACT_BASE = 0xC0DE0000
+# (name, pops, pushes) of value-typed operations: no operand is ever a
+# memory offset or a jump target
+EVM_VALUE_OPS = [
+    ("ADD", 2, 1), ("SUB", 2, 1), ("MUL", 2, 1), ("DIV", 2, 1),
+    ("MOD", 2, 1), ("LT", 2, 1), ("GT", 2, 1), ("SLT", 2, 1),
+    ("SGT", 2, 1), ("EQ", 2, 1), ("ISZERO", 1, 1), ("AND", 2, 1),
+    ("OR", 2, 1), ("XOR", 2, 1), ("NOT", 1, 1), ("BYTE", 2, 1),
+    ("SHL", 2, 1), ("SHR", 2, 1), ("SAR", 2, 1), ("SIGNEXTEND", 2, 1),
+    ("POP", 1, 0), ("CALLER", 0, 1), ("ADDRESS", 0, 1),
+    ("CALLVALUE", 0, 1), ("CALLDATASIZE", 0, 1), ("PC", 0, 1),
+    ("GAS", 0, 1), ("MSIZE", 0, 1),
+]
+EVM_MAX_DEPTH = 12  # stack items the loop body keeps above its counter
+EVM_FILL = 0.9  # the least share of the usable rows the RW rows fill
+
+
+def evm_witness(code: bytes, sender: int, contract: int) -> CircuitInputBuilder:
+    """One transaction from `sender` calling `contract` (which holds
+    `code`), no value and no calldata, traced and replayed."""
+    state = StateDB({sender: Account(balance=10**18), contract: Account(code=code)})
+    trace = Interpreter(state).run_tx(Tx(from_addr=sender, to=contract))
+    if trace.failed:
+        raise ValueError("the transaction failed in the tracer")
+    b = CircuitInputBuilder()
+    b.handle_tx(dict(from_addr=sender, to_addr=contract, value=0, calldata=b""),
+                trace, code_db={contract: code})
+    return b
+
+
+def evm_loop_program(rng: np.random.Generator, iters: int,
+                     n_snippets: int) -> Bytecode:
+    """A contract that runs a seeded body of `n_snippets` snippets
+    `iters` times: PUSH2 iters, JUMPDEST, body, counter - 1, DUP1,
+    PUSH2 loop, JUMPI, POP, STOP.  The body leaves the stack as it found
+    it and never touches the counter beneath it; memory offsets stay
+    below 512 and storage keys below 8."""
+    bc = Bytecode().push(2, iters)
+    loop = len(bc.code)
+    bc.op("JUMPDEST")
+    depth = 0  # items above the counter
+
+    def push_word():
+        nonlocal depth
+        nb = int(rng.choice([1, 1, 2, 4, 8, 16, 32]))
+        bc.push(nb, int.from_bytes(rng.bytes(nb), "big"))
+        depth += 1
+
+    def push_small(hi):
+        nonlocal depth
+        v = int(rng.integers(0, hi))
+        bc.push(2 if v > 0xFF else 1, v)
+        depth += 1
+
+    def ensure(n):
+        while depth < n:
+            push_word()
+
+    def value_op():
+        nonlocal depth
+        name, pops, pushes = EVM_VALUE_OPS[int(rng.integers(len(EVM_VALUE_OPS)))]
+        ensure(pops)
+        bc.op(name)
+        depth += pushes - pops
+
+    def dup_swap():
+        nonlocal depth
+        ensure(2)
+        if rng.random() < 0.5:
+            bc.op(f"DUP{int(rng.integers(1, min(depth, 16) + 1))}")
+            depth += 1
+        else:
+            bc.op(f"SWAP{int(rng.integers(1, min(depth - 1, 16) + 1))}")
+
+    def memory():
+        nonlocal depth
+        kind = ("MSTORE", "MSTORE8", "MLOAD")[int(rng.integers(3))]
+        if kind != "MLOAD":
+            ensure(1)
+        push_small(480)
+        bc.op(kind)
+        depth -= 0 if kind == "MLOAD" else 2
+
+    def storage():
+        nonlocal depth
+        if rng.random() < 0.5:
+            push_small(8)
+            bc.op("SLOAD")
+        else:
+            ensure(1)
+            push_small(8)
+            bc.op("SSTORE")
+            depth -= 2
+
+    def jump():
+        if rng.random() < 0.5:  # taken: to the JUMPDEST right after
+            bc.push(2, len(bc.code) + 4).op("JUMP").op("JUMPDEST")
+        else:  # not taken
+            bc.push(1, 0).push(2, int(rng.integers(1 << 16))).op("JUMPI")
+
+    kinds = [value_op] * 10 + [dup_swap] * 3 + [memory] * 3 + [storage] * 2 + [jump]
+    for _ in range(n_snippets):
+        kinds[int(rng.integers(len(kinds)))]()
+        while depth > EVM_MAX_DEPTH:
+            bc.op("POP")
+            depth -= 1
+    for _ in range(depth):
+        bc.op("POP")
+    bc.push(1, 1).op("SWAP1").op("SUB")  # counter - 1
+    bc.op("DUP1").push(2, loop).op("JUMPI")
+    return bc.op("POP").op("STOP")
+
+
+def evm_workload(seed: int, k: int):
+    """Transactions, each calling a fresh looping contract
+    (`evm_loop_program`), until the RW rows reach EVM_FILL of the usable
+    rows of 2^k.  A transaction that would overflow the rows is drawn
+    again with half the iterations and snippets, at most 8 times.
+    Returns (builder, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    state = StateDB({EVM_SENDER: Account(balance=10**18)})
+    b = CircuitInputBuilder(accounts={EVM_SENDER: AccountState(balance=10**18)})
+    txs = 0
+    while len(b.rws.rws) < EVM_FILL * cap:
+        addr = EVM_CONTRACT_BASE + txs
+        iters, snippets = int(rng.integers(4, 16)), int(rng.integers(8, 40))
+        for _ in range(8):
+            code = evm_loop_program(rng, iters, snippets).to_bytes()
+            code_hash = int.from_bytes(keccak256(code), "big")
+            calldata = rng.bytes(int(rng.integers(0, 64)))
+            value = int(rng.integers(0, 1000))
+            st, bb = copy.deepcopy(state), copy.deepcopy(b)
+            st.accounts[addr] = Account(code=code)
+            bb.accounts[addr] = AccountState(code_hash=code_hash)
+            tr = Interpreter(st).run_tx(Tx(from_addr=EVM_SENDER, to=addr,
+                                           gas=3_000_000, value=value,
+                                           data=calldata))
+            assert not tr.failed, "workload transaction failed"
+            bb.handle_tx(dict(from_addr=EVM_SENDER, to_addr=addr, value=value,
+                              calldata=calldata, code_hash=code_hash),
+                         tr, code_db={addr: code})
+            if len(bb.rws.rws) <= cap and len(bb.steps) <= cap:
+                break
+            iters, snippets = max(1, iters // 2), max(1, snippets // 2)
+        else:
+            break
+        state, b = st, bb
+        txs += 1
+    stats = {"txs": txs, "steps": len(b.steps), "rw_rows": len(b.rws.rws),
+             "usable_rows": cap, "rw_fill": len(b.rws.rws) / cap}
+    return b, stats
+
+
+def evm_prove_bench(k: int = 14, seed: int = 7, device=None, log=print) -> dict:
+    """Workload, SRS, keygen, prove, verify of the EVM circuit at degree
+    `k`, full width (`EvmParams()`: step and RW targets = usable rows).
+
+    Returns {"k", "workload", "srs_s", "keygen_s", "prove_s", "verify_s",
+    "ok", "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
+    dev = resolve(device)
+
+    def _sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    b, stats = evm_workload(seed, k)
+    stats["workload_s"] = time.perf_counter() - t0
+    log(f"[evm_bench k={k}] workload {stats}")
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=0xB_E2C4, device=dev)
+    _sync()
+    srs_s = time.perf_counter() - t0
+    keygen_phases: dict = {}
+    t0 = time.perf_counter()
+    pk, vk = keygen(EvmCircuit(b.steps, b.rws.rws, EvmParams()), k, srs,
+                    device=dev, timings=keygen_phases)
+    keygen_s = time.perf_counter() - t0
+    prove_phases: dict = {}
+    t0 = time.perf_counter()
+    proof = prove(pk, EvmCircuit(b.steps, b.rws.rws, EvmParams()), [], srs,
+                  rng=np.random.default_rng(7), device=dev,
+                  timings=prove_phases)
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = verify(vk, [], proof)
+    verify_s = time.perf_counter() - t0
+    return {
+        "k": k, "workload": stats, "srs_s": srs_s, "keygen_s": keygen_s,
+        "prove_s": prove_s, "verify_s": verify_s, "ok": bool(ok),
+        "proof_bytes": len(proof), "proof": proof, "cs": pk.vk.cs,
         "keygen_phases": keygen_phases, "prove_phases": prove_phases,
     }

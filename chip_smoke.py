@@ -12,10 +12,10 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. eight paths, each with the launch counts set to 0 just before it and
-     read just after it; the run fails if a kernel the path names was not
+  3. ten paths, each with the launch counts set to 0 just before it and
+     read, with the path's seconds, just after it; the run fails if a kernel the path names was not
      launched on it (K4 on the two mesh paths, every other kernel, both
-     forms of K5 included, on all eight):
+     forms of K5 included, on all ten):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -38,6 +38,16 @@ Phases, one line each (the process exits non-zero on any failure):
                  looping contracts filling >= 90% of the rows with RW rows
                  (service.bench_circuits.evm_workload): SRS, keygen, prove,
                  verify, per-phase seconds, peak device memory;
+     partners_k9   the EVM's table partners (MulMod, Exp, Bytecode, Tx at
+                   k=9, Copy at k=7, RLP at k=11) over the witnesses of the
+                   reference's tests (plonk/demo.py): each sha256 equals the
+                   reference's proof (golden), each verifies, and the Exp
+                   circuit with a bumped result byte is rejected;
+     partners_k16  Exp, Copy and Bytecode at k=16, full width, over seeded
+                   workloads filling >= 90% of the rows
+                   (service.bench_circuits.partner_prove_bench): SRS,
+                   keygen, prove, verify, per-phase seconds, the device
+                   memory still allocated when each starts and its peak;
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -714,6 +724,105 @@ def prove_evm_k14(dev, log, gpu: str) -> list:
     return fails
 
 
+def _d0_bump(circuit_cls):
+    """`circuit_cls` (circuits/exp.py::ExpCircuit) with the low byte of d
+    on the first (result) row bumped by one
+    (tests/test_exp_circuit.py::test_exp_circuit_catches_wrong_result):
+    the byte stays in the byte table, so only the gate 'exp mul lo' fails,
+    the prover makes a proof and the verifier must reject it."""
+    from zkevm_circuits_tpu_torch.crypto.field import fr
+
+    F = fr()
+
+    class Corrupt(circuit_cls):
+        def synthesize(self, phase, n, challenges, instances):
+            cols = super().synthesize(phase, n, challenges, instances)
+            if phase == 0:
+                arr = np.array(cols[self.c_d[0]])
+                cur = F.to_ints(arr[:1])[0] * pow(F.R, -1, F.modulus) % F.modulus
+                arr[0] = F.from_int((cur + 1) % 256 * F.R % F.modulus)
+                cols[self.c_d[0]] = arr
+            return cols
+
+    return Corrupt
+
+
+def prove_partners_k9(dev, log) -> list:
+    """The EVM's table partners at small k (plonk/demo.py's goldens: the
+    witnesses of the reference's tests): each proof's sha256 and length
+    equal the reference's, and it verifies; the Exp circuit with its
+    result byte bumped proves and is rejected."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    fails = []
+    for name, (k, sha, length) in demo.PARTNER_GOLDENS.items():
+        t0 = time.perf_counter()
+        srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU, device=dev)
+        pk, vk = keygen(demo.partner_golden(name), k, srs, device=dev)
+        t1 = time.perf_counter()
+        proof = prove(pk, demo.partner_golden(name), [], srs,
+                      rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED),
+                      device=dev)
+        t2 = time.perf_counter()
+        digest = hashlib.sha256(proof).hexdigest()
+        golden = digest == sha and len(proof) == length
+        ok = verify(vk, [], proof)
+        line = (f"[partners_k9] {name} k={k} setup+keygen {t1 - t0:.2f} s "
+                f"prove {t2 - t1:.2f} s proof_bytes={len(proof)} "
+                f"sha256={digest} golden={golden} verify={ok}")
+        if name == "exp":
+            c = demo.partner_golden(name)
+            bad = prove(pk, _d0_bump(type(c))(c.events), [], srs,
+                        rng=np.random.default_rng(1), device=dev)
+            corrupt = verify(vk, [], bad)
+            line += f" d0_bump={corrupt}"
+            if corrupt:
+                fails.append("partners_k9: the corrupted exp proof verified")
+        log(line)
+        if not golden:
+            fails.append(f"partners_k9: {name} proof differs from the golden")
+        if not ok:
+            fails.append(f"partners_k9: {name} proof did not verify")
+    return fails
+
+
+def prove_partners_k16(dev, log, gpu: str) -> list:
+    """Exp, Copy and Bytecode at k=16, full width, over the seeded
+    workloads of service.bench_circuits (each >= 90% of the usable rows):
+    SRS, keygen, prove, verify, per-phase seconds, peak device memory."""
+    from zkevm_circuits_tpu_torch.service.bench_circuits import (
+        PARTNER_FILL, partner_prove_bench)
+
+    fails = []
+    for name in ("exp", "copy", "bytecode"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev) / 2**30
+        r = partner_prove_bench(name, 16, seed=SEED, device=dev,
+                                log=lambda m: None)
+        cs, w = r["cs"], r["workload"]
+        log(f"[{name} k=16] card={gpu!r} workload={json.dumps(w)} "
+            f"advice={cs.num_advice} "
+            f"gate_polys={sum(len(g.polys) for g in cs.gates)} "
+            f"logup_inputs={sum(len(lg.inputs) for lg in cs.logups)} "
+            f"srs {r['srs_s']:.2f} s keygen {r['keygen_s']:.2f} s prove "
+            f"{r['prove_s']:.2f} s verify {r['verify_s']:.2f} s ok={r['ok']} "
+            f"proof_bytes={r['proof_bytes']} resident_gb={resident:.2f} "
+            f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+        log(f"[{name} k=16] prove phases (s, card={gpu!r}): "
+            f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
+        log(f"[{name} k=16] keygen phases (s, card={gpu!r}): "
+            f"{json.dumps({k_: round(v, 3) for k_, v in r['keygen_phases'].items()})}")
+        if not r["ok"]:
+            fails.append(f"{name} k=16 proof did not verify")
+        if w["fill"] < PARTNER_FILL:
+            fails.append(f"{name} k=16 workload filled {w['fill']:.4f} of the rows")
+    return fails
+
+
 KERNELS = [
     ("K1", "mont_mul", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:178"),
@@ -761,9 +870,12 @@ def main() -> int:
         nonlocal fails
         torch.cuda.reset_peak_memory_stats(dev)
         cf.reset_launches()
+        t = time.perf_counter()
         fails += drive()
+        torch.cuda.synchronize(dev)
         paths[path] = dict(cf.LAUNCHES)
-        log(f"[launches] {path}: {json.dumps(paths[path])}")
+        log(f"[launches] {path}: {json.dumps(paths[path])} "
+            f"({time.perf_counter() - t:.1f} s)")
         for kid, name, _, _ in KERNELS:
             if kid in kids and paths[path][name] == 0:
                 fails.append(f"{kid} {name} was not launched on {path}")
@@ -775,6 +887,8 @@ def main() -> int:
     drive_path("keccak_k16", lambda: prove_keccak_k16(dev, log, gpu), single)
     drive_path("evm_k9", lambda: prove_evm_k9(dev, log), single)
     drive_path("evm_k14", lambda: prove_evm_k14(dev, log, gpu), single)
+    drive_path("partners_k9", lambda: prove_partners_k9(dev, log), single)
+    drive_path("partners_k16", lambda: prove_partners_k16(dev, log, gpu), single)
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:

@@ -337,15 +337,32 @@ def test_builder_fuzz_matches_reference(seed):
     _same_builder(_build(ttr, tb, *args), _build(jtr, jb, *args))
 
 
-def test_builder_precompile_waits_for_its_circuit():
-    """A MULMOD step records a MulModEvent of circuits/mulmod.py, which the
-    port does not have yet: its builder raises ImportError, as it does for
-    the ecrecover, modexp and ecAdd/ecMul precompiles."""
-    code = tty.Bytecode().push(1, 7).push(1, 5).push(1, 3).op("MULMOD") \
-        .op("POP").op("STOP").to_bytes()
-    assert _build(jtr, jb, code, {}, 0, b"").mulmod_events
+def test_builder_mulmod_events_match_reference():
+    """MULMOD and ADDMOD steps record MulModEvents of circuits/mulmod.py:
+    the port's equal the reference's field by field, with n = 0 among them
+    (r = 0).  The modexp precompile's event is still a circuit the port
+    lacks (as are ecrecover's and ecAdd/ecMul's): its builder raises
+    ImportError there."""
+    code = (tty.Bytecode().push(1, 7).push(1, 5).push(1, 3).op("MULMOD")
+            .op("POP").push(1, 0).push(1, 5).push(1, 7).op("ADDMOD")
+            .op("POP").op("STOP").to_bytes())
+    t, j = _build(ttr, tb, code, {}, 0, b""), _build(jtr, jb, code, {}, 0, b"")
+    _same_builder(t, j)
+    assert _plain(t.mulmod_events) == _plain(j.mulmod_events)
+    assert [(e.a, e.b, e.n, e.r, e.is_add) for e in t.mulmod_events] == \
+        [(3, 5, 7, 1, False), (7, 5, 0, 0, True)]
+    # MODEXP(3, 5, 7): three 32-byte lengths of 1, then the operands
+    modexp = tty.Bytecode()
+    for off in (0, 32, 64):
+        modexp.push(1, 1).push(1, off).op("MSTORE")
+    for off, v in ((96, 3), (97, 5), (98, 7)):
+        modexp.push(1, v).push(1, off).op("MSTORE8")
+    modexp = (modexp.push(1, 1).push(1, 200).push(1, 99).push(1, 0)
+              .push(1, 5).op("GAS").op("STATICCALL").op("POP").op("STOP")
+              .to_bytes())
+    assert _build(jtr, jb, modexp, {}, 0, b"").modexp_events
     with pytest.raises(ImportError):
-        _build(ttr, tb, code, {}, 0, b"")
+        _build(ttr, tb, modexp, {}, 0, b"")
 
 
 def test_builder_multi_tx_workload_matches_reference(monkeypatch):

@@ -48,7 +48,8 @@ PIPELINE = {
     "types": ("__init__", "evm", "rlp", "bytecode", "transaction"),
     "tracer": ("__init__", "evm"),
     "witness": ("trace", "builder", "test_ctx", "block", "rw"),
-    "circuits": ("evm", "block", "state", "keccak"),
+    "circuits": ("evm", "block", "state", "keccak", "mulmod", "exp",
+                 "bytecode", "rlp", "tx", "copy"),
 }
 
 

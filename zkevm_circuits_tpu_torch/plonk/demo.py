@@ -137,3 +137,130 @@ class DemoCircuit(Circuit):
             self.c: _mont(c),
             self.d: _mont(d),
         }
+
+
+# ---------------------------------------------------------------------------
+# The EVM's table partners at small k: the witnesses of the reference's own
+# tests (tests/test_{exp,bytecode,tx,copy,rlp}_circuit.py; MulMod, which has
+# no test of its own, takes the MULMOD/ADDMOD program of
+# tests/test_super_circuit.py::test_super_circuit_mulmod_composed with an
+# ADDMOD mod 0 and a full-width MULMOD added), each with
+# Srs.unsafe_setup(k, tau=PARTNER_GOLDEN_TAU), no instances and
+# rng=np.random.default_rng(PARTNER_GOLDEN_SEED).  PARTNER_GOLDENS holds
+# each proof's sha256 and length, made by the reference (the JAX package on
+# the CPU, native library built); the port's proof must equal it.
+
+PARTNER_GOLDEN_TAU = 0xBE2C4
+PARTNER_GOLDEN_SEED = 7
+PARTNER_SENDER, PARTNER_CONTRACT = 0xCAFE, 0xC0DE
+_M256 = 1 << 256
+
+# (n, b, a) per MULMOD/ADDMOD step, pushed in that order: r = (a op b) mod n
+MULMOD_GOLDEN_OPS = (
+    ("MULMOD", 100, 23, 17),
+    ("ADDMOD", 250, 0x1234, 99),
+    ("ADDMOD", 0, 5, 7),
+    ("MULMOD", _M256 - 189, _M256 - 3, _M256 - 5),
+)
+# (base, exponent) per EXP step (tests/test_exp_circuit.py)
+EXP_GOLDEN_PAIRS = ((3, 5), (2**120 + 7, 2**130 + 3))
+# tests/test_bytecode_circuit.py::_codes: PUSH1 5 PUSH2 0x1234 ADD STOP;
+# PUSH1 7 DUP1 MUL POP STOP; a PUSH2 cut short by the end of the code
+BYTECODE_GOLDEN_CODES = (
+    bytes.fromhex("600561123401" "00"),
+    bytes.fromhex("6007800250" "00"),
+    bytes([0x61, 0xAB]),
+)
+# tests/test_tx_circuit.py::_txs: Transaction keyword arguments and the key
+# that signs each
+TX_GOLDEN_TXS = (
+    (dict(nonce=0, to=0xBEEF, value=100, data=b"\x01\x02\x03", chain_id=1337),
+     0x1111111111111111111111111111111111111111111111111111111111111111),
+    (dict(nonce=5, to=None, value=0, data=b"\x60\x00", chain_id=1337),
+     0x2222222222222222222222222222222222222222222222222222222222222222),
+)
+# tests/test_copy_circuit.py: CALLDATACOPY of 4 calldata bytes to memory 0
+COPY_GOLDEN_CALLDATA = bytes([0xAA, 0xBB, 0xCC, 0xDD])
+# tests/test_rlp_circuit.py: TX_SHORT, TX_LONG, TX_CREATE (unsigned)
+RLP_GOLDEN_TXS = (
+    dict(nonce=0, gas_price=10, gas=1_000_000, to=0xC0DE, value=0x1234,
+         data=bytes([0xAA, 0xBB]), chain_id=1337),
+    dict(nonce=7, gas_price=2**40 + 3, gas=21000, to=0xBEEF,
+         value=2**128 + 5, data=bytes(range(40)), chain_id=1337),
+    dict(nonce=1, gas_price=1, gas=53000, to=None, value=0, data=b"\x60\x01",
+         chain_id=1),
+)
+
+# name: (k, sha256, proof length)
+PARTNER_GOLDENS = {
+    "mulmod": (9, "0cacc1d4cd1d0ab6802c2d1682fe7aefe5a082952ed24759b23557c5dbbf2959", 82816),
+    "exp": (9, "be09b4c10329d3a66e51f65b53815d98f21319f997bc22d9f80e94eec4ea2fcf", 37856),
+    "bytecode": (9, "57503aa58dd59ca412daa1d3949a4024ce2c7c40fb45fdcc25fa493cdfd42470", 2080),
+    "tx": (9, "6235282f033a585c109b7342f95eb1ca29d758957616d43dd51e40024b156288", 2624),
+    "copy": (7, "df37160d00641c8c2d23eec42e74edc53dfd2d936d0f5b15e016ef4d80c46c9c", 4928),
+    "rlp": (11, "2ecb8fd41b91898b19948a649212d6fb83c74817dde1277e59e7d75f2ec43980", 8064),
+}
+
+
+def port_modules() -> dict:
+    """This package's modules that partner_golden builds from."""
+    from ..circuits import bytecode, copy, exp, mulmod, rlp, tx
+    from .. import tracer, types
+    from ..types import transaction
+    from ..witness import builder
+
+    return dict(types=types, transaction=transaction, tracer=tracer,
+                builder=builder, mulmod=mulmod,
+                exp=exp, bytecode=bytecode, tx=tx, copy=copy, rlp=rlp)
+
+
+def partner_builder(m: dict, code: bytes, calldata: bytes = b""):
+    """The builder after one transaction from PARTNER_SENDER to
+    PARTNER_CONTRACT running `code` with `calldata`."""
+    tr_ = m["tracer"]
+    state = tr_.StateDB({PARTNER_SENDER: tr_.Account(balance=10**18),
+                         PARTNER_CONTRACT: tr_.Account(code=code)})
+    trace = tr_.Interpreter(state).run_tx(
+        tr_.Tx(from_addr=PARTNER_SENDER, to=PARTNER_CONTRACT, data=calldata))
+    assert not trace.failed
+    b = m["builder"].CircuitInputBuilder()
+    b.handle_tx(dict(from_addr=PARTNER_SENDER, to_addr=PARTNER_CONTRACT,
+                     value=0, calldata=calldata), trace)
+    return b
+
+
+def partner_golden(name: str, m: dict | None = None):
+    """The circuit of golden `name` (a key of PARTNER_GOLDENS), built from
+    the modules `m` (default: port_modules(); another package's modules of
+    the same names build the same witness there)."""
+    m = m or port_modules()
+    B = m["types"].Bytecode
+    Transaction = m["transaction"].Transaction
+    if name == "mulmod":
+        code = B()
+        for op, nn, b, a in MULMOD_GOLDEN_OPS:
+            code.push(32, nn).push(32, b).push(32, a).op(op).op("POP")
+        b = partner_builder(m, code.op("STOP").to_bytes())
+        return m["mulmod"].MulModCircuit(b.mulmod_events)
+    if name == "exp":
+        code = B()
+        for base, e in EXP_GOLDEN_PAIRS:
+            code.push(32, e).push(32, base).op("EXP").op("POP")
+        b = partner_builder(m, code.op("STOP").to_bytes())
+        return m["exp"].ExpCircuit(b.exp_events)
+    if name == "bytecode":
+        return m["bytecode"].BytecodeCircuit([B(c) for c in BYTECODE_GOLDEN_CODES])
+    if name == "tx":
+        return m["tx"].TxCircuit([Transaction(**kw).sign(sk)
+                                  for kw, sk in TX_GOLDEN_TXS])
+    if name == "copy":
+        data = COPY_GOLDEN_CALLDATA
+        code = (B().push(1, len(data)).push(1, 0).push(1, 0)
+                .op("CALLDATACOPY").op("STOP"))
+        b = partner_builder(m, code.to_bytes(), data)
+        return m["copy"].CopyCircuit(
+            b.copy_events, rw_rows=b.rws.rws,
+            tx_rows=[(1, i, byte) for i, byte in enumerate(data)])
+    if name == "rlp":
+        return m["rlp"].RlpCircuit([Transaction(**kw) for kw in RLP_GOLDEN_TXS])
+    raise KeyError(name)

@@ -10,6 +10,14 @@ keygen, prove (full SHPLONK proof), verify, with per-phase wall-clock.
 `evm_prove_bench(k, seed)` does the same for the EVM circuit over a
 seeded workload of looping contracts (`evm_workload`), traced by the
 port's Interpreter and replayed by its CircuitInputBuilder.
+
+`partner_prove_bench(name, k, seed)` does the same for the EVM's table
+partners at their default (full-width) parameters: the Exp circuit over
+the ExpEvents of a seeded EXP program (`exp_workload`), the Copy circuit
+over the copy events of one transaction's CALLDATACOPY, CODECOPY and LOG
+data (`copy_workload`), and the Bytecode circuit over seeded bytecodes
+(`bytecode_workload`), each filling at least PARTNER_FILL of the usable
+rows of 2^k.
 """
 
 from __future__ import annotations
@@ -20,7 +28,10 @@ import time
 import numpy as np
 import torch
 
+from ..circuits.bytecode import BytecodeCircuit
+from ..circuits.copy import CopyCircuit
 from ..circuits.evm import EvmCircuit, EvmParams
+from ..circuits.exp import ExpCircuit
 from ..circuits.state import StateCircuit, StateParams
 from ..crypto.keccak import keccak256
 from ..device import resolve
@@ -31,6 +42,7 @@ from ..plonk.verifier import verify
 from ..poly.kzg import Srs
 from ..tracer import Account, Interpreter, StateDB, Tx
 from ..types import Bytecode
+from ..types.evm import OpcodeId
 from ..witness.builder import AccountState, CircuitInputBuilder
 from ..witness.rw import Rw, RwTag
 
@@ -142,16 +154,18 @@ EVM_MAX_DEPTH = 12  # stack items the loop body keeps above its counter
 EVM_FILL = 0.9  # the least share of the usable rows the RW rows fill
 
 
-def evm_witness(code: bytes, sender: int, contract: int) -> CircuitInputBuilder:
+def evm_witness(code: bytes, sender: int, contract: int, calldata: bytes = b"",
+                gas: int = 1_000_000) -> CircuitInputBuilder:
     """One transaction from `sender` calling `contract` (which holds
-    `code`), no value and no calldata, traced and replayed."""
+    `code`) with `calldata` and no value, traced and replayed."""
     state = StateDB({sender: Account(balance=10**18), contract: Account(code=code)})
-    trace = Interpreter(state).run_tx(Tx(from_addr=sender, to=contract))
+    trace = Interpreter(state).run_tx(Tx(from_addr=sender, to=contract, gas=gas,
+                                         data=calldata))
     if trace.failed:
         raise ValueError("the transaction failed in the tracer")
     b = CircuitInputBuilder()
-    b.handle_tx(dict(from_addr=sender, to_addr=contract, value=0, calldata=b""),
-                trace, code_db={contract: code})
+    b.handle_tx(dict(from_addr=sender, to_addr=contract, value=0,
+                     calldata=calldata), trace, code_db={contract: code})
     return b
 
 
@@ -279,43 +293,214 @@ def evm_workload(seed: int, k: int):
     return b, stats
 
 
+def _prove_verify(make_circuit, k: int, dev) -> dict:
+    """SRS, keygen, prove and verify of make_circuit() at degree `k` on
+    `dev`, each timed (the device synchronised after the SRS).
+
+    Returns {"k", "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
+    "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=0xB_E2C4, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    srs_s = time.perf_counter() - t0
+    keygen_phases: dict = {}
+    t0 = time.perf_counter()
+    pk, vk = keygen(make_circuit(), k, srs, device=dev, timings=keygen_phases)
+    keygen_s = time.perf_counter() - t0
+    prove_phases: dict = {}
+    t0 = time.perf_counter()
+    proof = prove(pk, make_circuit(), [], srs, rng=np.random.default_rng(7),
+                  device=dev, timings=prove_phases)
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = verify(vk, [], proof)
+    verify_s = time.perf_counter() - t0
+    return {
+        "k": k, "srs_s": srs_s, "keygen_s": keygen_s,
+        "prove_s": prove_s, "verify_s": verify_s, "ok": bool(ok),
+        "proof_bytes": len(proof), "proof": proof, "cs": pk.vk.cs,
+        "keygen_phases": keygen_phases, "prove_phases": prove_phases,
+    }
+
+
 def evm_prove_bench(k: int = 14, seed: int = 7, device=None, log=print) -> dict:
     """Workload, SRS, keygen, prove, verify of the EVM circuit at degree
     `k`, full width (`EvmParams()`: step and RW targets = usable rows).
 
     Returns {"k", "workload", "srs_s", "keygen_s", "prove_s", "verify_s",
     "ok", "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
-    dev = resolve(device)
-
-    def _sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     t0 = time.perf_counter()
     b, stats = evm_workload(seed, k)
     stats["workload_s"] = time.perf_counter() - t0
     log(f"[evm_bench k={k}] workload {stats}")
+    r = _prove_verify(lambda: EvmCircuit(b.steps, b.rws.rws, EvmParams()), k,
+                      resolve(device))
+    return {**r, "workload": stats}
+
+
+# ---------------------------------------------------------------------------
+# the EVM's table partners at full width
+PARTNER_FILL = 0.9  # the least share of the usable rows a workload fills
+PARTNER_GAS = 30_000_000
+
+
+def _exp_rows(exponent: int) -> int:
+    """The Exp circuit's rows for one EXP: its square-and-multiply steps."""
+    return 0 if exponent < 2 else exponent.bit_length() + bin(exponent).count("1") - 2
+
+
+def exp_workload(seed: int, k: int):
+    """One contract running PUSH32 exponent, PUSH32 base, EXP, POP over
+    seeded 256-bit bases and exponents (0 and 1 among both, and exponents
+    of every width) until the ExpEvents' steps fill the usable rows of 2^k
+    but for less than one EXP's steps.  Returns (builder, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    word = lambda: int.from_bytes(rng.bytes(32), "big")
+    pairs, rows = [], 0
+    for base, e in ((word(), 0), (word(), 1), (word(), 2), (0, word()),
+                    (1, word()), (word(), (1 << 256) - 1)):
+        if rows + _exp_rows(e) <= cap:
+            pairs.append((base, e))
+            rows += _exp_rows(e)
+    while True:
+        nb = int(rng.integers(1, 33))  # exponent width in bytes
+        e = int.from_bytes(rng.bytes(nb), "big")
+        if rows + _exp_rows(e) > cap:
+            break
+        pairs.append((word(), e))
+        rows += _exp_rows(e)
+    code = Bytecode()
+    for base, e in pairs:
+        code.push(32, e).push(32, base).op("EXP").op("POP")
+    b = evm_witness(code.op("STOP").to_bytes(), EVM_SENDER, EVM_CONTRACT_BASE,
+                    gas=PARTNER_GAS)
+    for (base, e), ev in zip([p for p in pairs if p[1] >= 2], b.exp_events):
+        assert (ev.base, ev.exponent) == (base, e)
+    rows = sum(len(ev.steps) for ev in b.exp_events)
+    return b, {"exps": len(pairs), "events": len(b.exp_events), "rows": rows,
+               "usable_rows": cap, "fill": rows / cap}
+
+
+COPY_CALLDATA = 4096  # calldata bytes of the copy workload's transaction
+
+
+def copy_workload(seed: int, k: int):
+    """One transaction with up to COPY_CALLDATA seeded calldata bytes (a
+    sixteenth of the usable rows at most) whose contract runs CALLDATACOPY
+    (some reads past the end of the calldata, so padded bytes appear),
+    CODECOPY and LOG0-LOG2 data copies of seeded offsets and lengths until
+    the copied bytes pass (PARTNER_FILL + 0.05) of the usable rows of 2^k,
+    or the next copy would leave fewer than 64 usable rows for the copy
+    rows or for the memory and TxLog RW rows (the circuit's standalone RW
+    table).  That table is the builder's RW rows, the calldata's (tx_id,
+    index, byte) rows the TxTable.  Returns (builder, tx_rows, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    data_len = min(COPY_CALLDATA, cap // 16)
+    calldata = rng.bytes(data_len)
+    code = Bytecode()
+    copied = mem_rows = 0
+    kinds = ["calldata"] * 6 + ["code"] * 3 + ["log"]
+    while copied < (PARTNER_FILL + 0.05) * cap:
+        kind = kinds[int(rng.integers(len(kinds)))]
+        n = int(rng.integers(1, max(2, min(1024, cap // 32))))
+        dst = int(rng.integers(0, 4096))
+        if kind == "log":
+            n = min(n, 256)
+            extra = 2 * n + 3  # memory reads, TxLog data and topic rows
+        else:
+            extra = n
+        if copied + n > cap - 64 or mem_rows + extra > cap - 64:
+            break
+        if kind == "calldata":
+            src = int(rng.integers(0, data_len + data_len // 8))
+            code.push(2, n).push(2, src).push(2, dst).op("CALLDATACOPY")
+        elif kind == "code":
+            src = int(rng.integers(0, 4096))
+            code.push(2, n).push(2, src).push(2, dst).op("CODECOPY")
+        else:
+            topics = int(rng.integers(0, 3))
+            for _ in range(topics):
+                code.push(32, int.from_bytes(rng.bytes(32), "big"))
+            code.push(2, n).push(2, dst).op(f"LOG{topics}")
+        copied += n
+        mem_rows += extra
+    b = evm_witness(code.op("STOP").to_bytes(), EVM_SENDER, EVM_CONTRACT_BASE,
+                    calldata=calldata, gas=PARTNER_GAS)
+    tx_rows = [(1, i, byte) for i, byte in enumerate(calldata)]
+    rows = sum(ev.length for ev in b.copy_events)
+    kinds_ = sorted({(ev.src_type, ev.dst_type) for ev in b.copy_events})
+    pads = sum(max(0, ev.src_addr + ev.length - max(ev.src_len, ev.src_addr))
+               for ev in b.copy_events if ev.src_type == "calldata")
+    return b, tx_rows, {
+        "events": len(b.copy_events), "rows": rows, "usable_rows": cap,
+        "fill": rows / cap, "calldata": data_len, "padded_bytes": pads,
+        "kinds": [f"{s}->{d}" for s, d in kinds_],
+        "memory_rw_rows": sum(1 for r in b.rws.rws
+                              if r.tag in (RwTag.Memory, RwTag.TxLog))}
+
+
+_PLAIN_OPS = [int(op) for op in OpcodeId
+              if not (0x60 <= int(op) <= 0x7F)]
+
+
+def bytecode_workload(seed: int, k: int):
+    """Seeded bytecodes of PUSH1-PUSH32 with their immediates among plain
+    opcodes, the first one empty, seeded lengths (some cut through a
+    PUSH's immediate), until their rows (one a byte, one header a code)
+    fill the usable rows of 2^k but for less than one code.  Returns
+    (bytecodes, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    codes = [Bytecode()]
+    rows = 1
+    while rows < cap:
+        length = min(int(rng.integers(1, 4097)), cap - rows - 1)
+        if length <= 0:
+            break
+        bc = Bytecode()
+        while len(bc) < length:
+            if rng.random() < 0.3:
+                nb = int(rng.integers(1, 33))
+                bc.append(bytes([0x5F + nb]) + rng.bytes(nb))
+            else:
+                bc.append(bytes([_PLAIN_OPS[int(rng.integers(len(_PLAIN_OPS)))]]))
+        codes.append(Bytecode(bc.to_bytes()[:length]))
+        rows += 1 + length
+    return codes, {"codes": len(codes), "bytes": sum(len(c) for c in codes),
+                   "rows": rows, "usable_rows": cap, "fill": rows / cap}
+
+
+def partner_circuit(name: str, k: int, seed: int):
+    """(circuit, stats) of the `name` workload ("exp", "copy" or
+    "bytecode") at degree `k`, the circuit at its default parameters; the
+    stats carry the host seconds of the workload as "workload_s"."""
     t0 = time.perf_counter()
-    srs = Srs.unsafe_setup(k, tau=0xB_E2C4, device=dev)
-    _sync()
-    srs_s = time.perf_counter() - t0
-    keygen_phases: dict = {}
-    t0 = time.perf_counter()
-    pk, vk = keygen(EvmCircuit(b.steps, b.rws.rws, EvmParams()), k, srs,
-                    device=dev, timings=keygen_phases)
-    keygen_s = time.perf_counter() - t0
-    prove_phases: dict = {}
-    t0 = time.perf_counter()
-    proof = prove(pk, EvmCircuit(b.steps, b.rws.rws, EvmParams()), [], srs,
-                  rng=np.random.default_rng(7), device=dev,
-                  timings=prove_phases)
-    prove_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ok = verify(vk, [], proof)
-    verify_s = time.perf_counter() - t0
-    return {
-        "k": k, "workload": stats, "srs_s": srs_s, "keygen_s": keygen_s,
-        "prove_s": prove_s, "verify_s": verify_s, "ok": bool(ok),
-        "proof_bytes": len(proof), "proof": proof, "cs": pk.vk.cs,
-        "keygen_phases": keygen_phases, "prove_phases": prove_phases,
-    }
+    if name == "exp":
+        b, stats = exp_workload(seed, k)
+        circuit = ExpCircuit(b.exp_events)
+    elif name == "copy":
+        b, tx_rows, stats = copy_workload(seed, k)
+        circuit = CopyCircuit(b.copy_events, rw_rows=b.rws.rws, tx_rows=tx_rows)
+    elif name == "bytecode":
+        codes, stats = bytecode_workload(seed, k)
+        circuit = BytecodeCircuit(codes)
+    else:
+        raise KeyError(name)
+    stats["workload_s"] = time.perf_counter() - t0
+    return circuit, stats
+
+
+def partner_prove_bench(name: str, k: int = 16, seed: int = 7, device=None,
+                        log=print) -> dict:
+    """Workload, SRS, keygen, prove, verify of a table partner (see
+    partner_circuit) at degree `k`.
+
+    Returns {"k", "workload", "srs_s", "keygen_s", "prove_s", "verify_s",
+    "ok", "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
+    circuit, stats = partner_circuit(name, k, seed)
+    log(f"[{name}_bench k={k}] workload {stats}")
+    return {**_prove_verify(lambda: circuit, k, resolve(device)),
+            "workload": stats}

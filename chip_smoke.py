@@ -12,10 +12,10 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. ten paths, each with the launch counts set to 0 just before it and
-     read, with the path's seconds, just after it; the run fails if a kernel the path names was not
-     launched on it (K4 on the two mesh paths, every other kernel, both
-     forms of K5 included, on all ten):
+  3. twelve paths, each with the launch counts set to 0 just before it
+     and read, with the path's seconds, just after it; the run fails if a
+     kernel the path names was not launched on it (K4 on the two mesh
+     paths, every other kernel, both forms of K5 included, on all twelve):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -48,6 +48,17 @@ Phases, one line each (the process exits non-zero on any failure):
                    (service.bench_circuits.partner_prove_bench): SRS,
                    keygen, prove, verify, per-phase seconds, the device
                    memory still allocated when each starts and its peak;
+     precompiles_k9   the precompile circuits (SHA-256, ModExp, ECC's six
+                      EcAdd cases) at k=9 over the witnesses of the
+                      reference's tests (plonk/demo.py): each sha256 equals
+                      the reference's proof (golden), each verifies, and
+                      SHA-256 with a flipped digest bit is rejected;
+     precompiles_k13  Sig (one seeded ECDSA), ECC, ModExp and SHA-256 at
+                      k=13, full width, over seeded workloads (each but Sig
+                      >= 90% of the usable rows; service.bench_circuits.
+                      precompile_prove_bench): SRS, keygen, prove, verify,
+                      per-phase seconds, resident and peak memory; then Sig
+                      with a flipped scalar bit, which must be rejected;
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -747,11 +758,13 @@ def _d0_bump(circuit_cls):
     return Corrupt
 
 
-def prove_partners_k9(dev, log) -> list:
-    """The EVM's table partners at small k (plonk/demo.py's goldens: the
-    witnesses of the reference's tests): each proof's sha256 and length
-    equal the reference's, and it verifies; the Exp circuit with its
-    result byte bumped proves and is rejected."""
+def _prove_goldens(dev, log, path: str, goldens: dict, make, corrupt) -> list:
+    """Each golden of `goldens` ({name: (k, sha256, proof length)}) over
+    its circuit make(name): SRS, keygen and prove on the card; the proof's
+    sha256 and length equal the golden's (the reference's proof), and it
+    verifies.  `corrupt` = (name, label, circuit -> corrupted circuit):
+    that golden's proving key proves the corrupted witness, which the
+    verifier must reject."""
     from zkevm_circuits_tpu_torch.plonk import demo
     from zkevm_circuits_tpu_torch.plonk.keygen import keygen
     from zkevm_circuits_tpu_torch.plonk.prover import prove
@@ -759,35 +772,63 @@ def prove_partners_k9(dev, log) -> list:
     from zkevm_circuits_tpu_torch.poly.kzg import Srs
 
     fails = []
-    for name, (k, sha, length) in demo.PARTNER_GOLDENS.items():
+    for name, (k, sha, length) in goldens.items():
         t0 = time.perf_counter()
         srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU, device=dev)
-        pk, vk = keygen(demo.partner_golden(name), k, srs, device=dev)
+        pk, vk = keygen(make(name), k, srs, device=dev)
         t1 = time.perf_counter()
-        proof = prove(pk, demo.partner_golden(name), [], srs,
+        proof = prove(pk, make(name), [], srs,
                       rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED),
                       device=dev)
         t2 = time.perf_counter()
         digest = hashlib.sha256(proof).hexdigest()
         golden = digest == sha and len(proof) == length
         ok = verify(vk, [], proof)
-        line = (f"[partners_k9] {name} k={k} setup+keygen {t1 - t0:.2f} s "
+        line = (f"[{path}] {name} k={k} setup+keygen {t1 - t0:.2f} s "
                 f"prove {t2 - t1:.2f} s proof_bytes={len(proof)} "
                 f"sha256={digest} golden={golden} verify={ok}")
-        if name == "exp":
-            c = demo.partner_golden(name)
-            bad = prove(pk, _d0_bump(type(c))(c.events), [], srs,
+        if name == corrupt[0]:
+            bad = prove(pk, corrupt[2](make(name)), [], srs,
                         rng=np.random.default_rng(1), device=dev)
-            corrupt = verify(vk, [], bad)
-            line += f" d0_bump={corrupt}"
-            if corrupt:
-                fails.append("partners_k9: the corrupted exp proof verified")
+            rejected = not verify(vk, [], bad)
+            line += f" {corrupt[1]}_rejected={rejected}"
+            if not rejected:
+                fails.append(f"{path}: the corrupted {name} proof verified")
         log(line)
         if not golden:
-            fails.append(f"partners_k9: {name} proof differs from the golden")
+            fails.append(f"{path}: {name} proof differs from the golden")
         if not ok:
-            fails.append(f"partners_k9: {name} proof did not verify")
+            fails.append(f"{path}: {name} proof did not verify")
     return fails
+
+
+def prove_partners_k9(dev, log) -> list:
+    """The EVM's table partners at small k (plonk/demo.py's goldens: the
+    witnesses of the reference's tests); the Exp circuit with its result
+    byte bumped proves and is rejected."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+
+    return _prove_goldens(
+        dev, log, "partners_k9", demo.PARTNER_GOLDENS, demo.partner_golden,
+        ("exp", "d0_bump", lambda c: _d0_bump(type(c))(c.events)))
+
+
+def _log_bench(log, gpu: str, name: str, r: dict, resident: float):
+    """The lines of one *_prove_bench result: workload, shape, seconds,
+    proof bytes, the device memory allocated before it and its peak; the
+    prove and keygen phases."""
+    cs, w, k = r["cs"], r["workload"], r["k"]
+    log(f"[{name} k={k}] card={gpu!r} workload={json.dumps(w)} "
+        f"advice={cs.num_advice} "
+        f"gate_polys={sum(len(g.polys) for g in cs.gates)} "
+        f"logup_inputs={sum(len(lg.inputs) for lg in cs.logups)} "
+        f"srs {r['srs_s']:.2f} s keygen {r['keygen_s']:.2f} s prove "
+        f"{r['prove_s']:.2f} s verify {r['verify_s']:.2f} s ok={r['ok']} "
+        f"proof_bytes={r['proof_bytes']} resident_gb={resident:.2f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    for phase in ("prove", "keygen"):
+        log(f"[{name} k={k}] {phase} phases (s, card={gpu!r}): "
+            f"{json.dumps({k_: round(v, 3) for k_, v in r[phase + '_phases'].items()})}")
 
 
 def prove_partners_k16(dev, log, gpu: str) -> list:
@@ -803,23 +844,94 @@ def prove_partners_k16(dev, log, gpu: str) -> list:
         resident = torch.cuda.memory_allocated(dev) / 2**30
         r = partner_prove_bench(name, 16, seed=SEED, device=dev,
                                 log=lambda m: None)
-        cs, w = r["cs"], r["workload"]
-        log(f"[{name} k=16] card={gpu!r} workload={json.dumps(w)} "
-            f"advice={cs.num_advice} "
-            f"gate_polys={sum(len(g.polys) for g in cs.gates)} "
-            f"logup_inputs={sum(len(lg.inputs) for lg in cs.logups)} "
-            f"srs {r['srs_s']:.2f} s keygen {r['keygen_s']:.2f} s prove "
-            f"{r['prove_s']:.2f} s verify {r['verify_s']:.2f} s ok={r['ok']} "
-            f"proof_bytes={r['proof_bytes']} resident_gb={resident:.2f} "
-            f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
-        log(f"[{name} k=16] prove phases (s, card={gpu!r}): "
-            f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
-        log(f"[{name} k=16] keygen phases (s, card={gpu!r}): "
-            f"{json.dumps({k_: round(v, 3) for k_, v in r['keygen_phases'].items()})}")
+        _log_bench(log, gpu, name, r, resident)
         if not r["ok"]:
             fails.append(f"{name} k=16 proof did not verify")
-        if w["fill"] < PARTNER_FILL:
-            fails.append(f"{name} k=16 workload filled {w['fill']:.4f} of the rows")
+        if r["workload"]["fill"] < PARTNER_FILL:
+            fails.append(f"{name} k=16 workload filled "
+                         f"{r['workload']['fill']:.4f} of the rows")
+    return fails
+
+
+def _flip_bit(circuit_cls, column, row: int):
+    """`circuit_cls` with the bit in row `row` of its phase-0 advice column
+    column(circuit) flipped: SHA-256's digest word H'_0 on the first
+    message's last digest row (tests/test_sha256_circuit.py::
+    test_sha256_circuit_catches_wrong_digest: only "sha out rlc" fails),
+    or Sig's u1 scalar bit on walk row 101 (tests/test_sig_circuit.py::
+    test_sig_circuit_catches_tampered_scalar_bit: on the CPU the MockProver
+    finds only gates failing, 'sig tx mux 0/1', 'sig ty mux 0/1', 'sig u1h
+    walk').  No lookup fails, so the prover makes a proof; the verifier
+    must reject it."""
+    from zkevm_circuits_tpu_torch.crypto.field import fr
+
+    F = fr()
+
+    class Corrupt(circuit_cls):
+        def synthesize(self, phase, n, challenges, instances):
+            cols = super().synthesize(phase, n, challenges, instances)
+            if phase == 0:
+                c = column(self)
+                arr = np.array(cols[c])
+                cur = int(np.any(arr[row]))
+                arr[row] = F.from_int((1 - cur) * F.R % F.modulus)
+                cols[c] = arr
+            return cols
+
+    return Corrupt
+
+
+def prove_precompiles_k9(dev, log) -> list:
+    """The precompile circuits at k=9 (plonk/demo.py's goldens: the
+    witnesses of the reference's tests); SHA-256 with a digest bit
+    flipped proves and is rejected."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+
+    return _prove_goldens(
+        dev, log, "precompiles_k9", demo.PRECOMPILE_GOLDENS,
+        demo.precompile_golden,
+        ("sha256", "digest_bit_flip",
+         lambda c: _flip_bit(type(c), lambda s: s.c_a[0], 71)(c.messages)))
+
+
+def prove_precompiles_k13(dev, log, gpu: str) -> list:
+    """Sig, ECC, ModExp and SHA-256 at k=13, full width, over the seeded
+    workloads of service.bench_circuits (each but Sig >= 90% of the usable
+    rows): SRS, keygen, prove, verify, per-phase seconds, the device memory
+    still allocated when each starts and its peak; then the Sig circuit
+    with a scalar bit flipped, which must be rejected."""
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.service.bench_circuits import (
+        PRECOMPILE_FILL, precompile_circuit, precompile_prove_bench)
+
+    k, fails = 13, []
+    for name in ("sig", "ecc", "modexp", "sha256"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev) / 2**30
+        r = precompile_prove_bench(name, k, seed=SEED, device=dev,
+                                   log=lambda m: None)
+        _log_bench(log, gpu, name, r, resident)
+        if not r["ok"]:
+            fails.append(f"{name} k={k} proof did not verify")
+        if name != "sig" and r["workload"]["fill"] < PRECOMPILE_FILL:
+            fails.append(f"{name} k={k} workload filled "
+                         f"{r['workload']['fill']:.4f} of the rows")
+        del r
+    circuit, _ = precompile_circuit("sig", k, SEED)
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=0xBE2C4, device=dev)
+    pk, vk = keygen(circuit, k, srs, device=dev)
+    flipped = _flip_bit(type(circuit), lambda s: s.c_b1, 101)
+    bad = prove(pk, flipped(circuit.events), [], srs,
+                rng=np.random.default_rng(1), device=dev)
+    rejected = not verify(vk, [], bad)
+    log(f"[sig k={k}] scalar_bit_flip_rejected={rejected} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not rejected:
+        fails.append(f"sig k={k}: the corrupted proof verified")
     return fails
 
 
@@ -889,6 +1001,9 @@ def main() -> int:
     drive_path("evm_k14", lambda: prove_evm_k14(dev, log, gpu), single)
     drive_path("partners_k9", lambda: prove_partners_k9(dev, log), single)
     drive_path("partners_k16", lambda: prove_partners_k16(dev, log, gpu), single)
+    drive_path("precompiles_k9", lambda: prove_precompiles_k9(dev, log), single)
+    drive_path("precompiles_k13",
+               lambda: prove_precompiles_k13(dev, log, gpu), single)
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:

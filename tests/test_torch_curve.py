@@ -90,6 +90,18 @@ def test_k5_plain_matches_reference_and_oracle(mode):
     assert _affine(got) == want
 
 
+@pytest.mark.parametrize("mode", ["complete", "incomplete", "affine"])
+def test_k5_plain_in_pieces_matches_reference(mode, monkeypatch):
+    """A batch of more points than PLAIN_ROWS runs in pieces; the (2, 5)
+    batch shape and the bytes are those of the reference's add."""
+    monkeypatch.setattr(cc, "PLAIN_ROWS", 3)
+    p, q, _, _ = _cases(mode)
+    got = cc.g1_add_plain(*(t.reshape(2, 5, 32) for t in _to_t(p)),
+                          *(t.reshape(2, 5, 32) for t in _to_t(q)), mode=mode)
+    assert all(g.shape == (2, 5, 32) for g in got)
+    assert _same(_jadd(p, q), tc.G1(*(g.reshape(ROWS, 32) for g in got)))
+
+
 def test_g1_add_routes_cpu_to_plain():
     p, q, _, _ = _cases("complete")
     from zkevm_circuits_tpu_torch.ops import cuda_field as cf

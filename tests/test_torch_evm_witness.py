@@ -340,9 +340,8 @@ def test_builder_fuzz_matches_reference(seed):
 def test_builder_mulmod_events_match_reference():
     """MULMOD and ADDMOD steps record MulModEvents of circuits/mulmod.py:
     the port's equal the reference's field by field, with n = 0 among them
-    (r = 0).  The modexp precompile's event is still a circuit the port
-    lacks (as are ecrecover's and ecAdd/ecMul's): its builder raises
-    ImportError there."""
+    (r = 0).  The modexp precompile records its ModExpEvent of
+    circuits/modexp.py in both builders alike."""
     code = (tty.Bytecode().push(1, 7).push(1, 5).push(1, 3).op("MULMOD")
             .op("POP").push(1, 0).push(1, 5).push(1, 7).op("ADDMOD")
             .op("POP").op("STOP").to_bytes())
@@ -360,9 +359,88 @@ def test_builder_mulmod_events_match_reference():
     modexp = (modexp.push(1, 1).push(1, 200).push(1, 99).push(1, 0)
               .push(1, 5).op("GAS").op("STATICCALL").op("POP").op("STOP")
               .to_bytes())
-    assert _build(jtr, jb, modexp, {}, 0, b"").modexp_events
-    with pytest.raises(ImportError):
-        _build(ttr, tb, modexp, {}, 0, b"")
+    t, j = (_build(ttr, tb, modexp, {}, 0, b""),
+            _build(jtr, jb, modexp, {}, 0, b""))
+    _same_builder(t, j)
+    assert _plain(t.modexp_events) == _plain(j.modexp_events)
+    assert [(e.base, e.exponent, e.modulus, e.result)
+            for e in t.modexp_events] == [(3, 5, 7, pow(3, 5, 7))]
+
+
+def _mstore_word(code, offset, value):
+    return code.push(32, value).push(2, offset).op("MSTORE")
+
+
+def _static_call(code, addr, args_len, ret_off, ret_len):
+    code.push(1, ret_len).push(2, ret_off).push(1, args_len).push(1, 0)
+    return code.push(2, addr).push(2, 0xFFFF).op("STATICCALL").op("POP")
+
+
+def _precompile_program(name):
+    """The precompile programs of tests/test_super_circuit.py: ecAdd (after
+    an identity call), ecMul, ecrecover, SHA-256 of 40 bytes and of none,
+    and a 32/32/32-byte modexp."""
+    from zkevm_circuits_tpu_torch.crypto.curve import host_g1_add
+    from zkevm_circuits_tpu_torch.crypto.params import G1_GEN
+
+    code = tty.Bytecode()
+    if name == "ecadd":
+        g2 = host_g1_add(G1_GEN, G1_GEN)
+        _mstore_word(code, 0, 0x1234)
+        _static_call(code, 4, 32, 0x40, 32)
+        code.push(1, 0x40).op("MLOAD").op("POP")
+        for off, v in ((0, G1_GEN[0]), (32, G1_GEN[1]), (64, g2[0]),
+                       (96, g2[1])):
+            _mstore_word(code, off, v)
+        _static_call(code, 6, 128, 0x100, 64)
+    elif name == "ecmul":
+        for off, v in ((0, G1_GEN[0]), (32, G1_GEN[1]), (64, 0xABCDEF123456789)):
+            _mstore_word(code, off, v)
+        _static_call(code, 7, 96, 0x100, 64)
+    elif name == "ecrecover":
+        z = 0x1122334455667788
+        r, s, rec = tsecp.sign(0x5EED_BEEF_F00D, z.to_bytes(32, "big"))
+        for off, v in ((0, z), (32, 27 + rec), (64, r), (96, s)):
+            _mstore_word(code, off, v)
+        _static_call(code, 1, 128, 0x100, 32)
+    elif name == "sha256":
+        msg = bytes(range(40))
+        for i in range(0, 40, 32):
+            _mstore_word(code, i, int.from_bytes(msg[i:i + 32].ljust(32, b"\x00"), "big"))
+        _static_call(code, 2, 40, 0x100, 32)
+    elif name == "sha256_empty":
+        _static_call(code, 2, 0, 0x100, 32)
+    elif name == "modexp":
+        for off, v in ((0, 32), (32, 32), (64, 32), (96, 0x1234), (128, 0x1001),
+                       (160, (1 << 200) + 7)):
+            _mstore_word(code, off, v)
+        _static_call(code, 5, 192, 0x200, 32)
+    return code.push(2, 0x100).op("MLOAD").op("POP").op("STOP").to_bytes()
+
+
+@pytest.mark.parametrize("name", ["ecadd", "ecmul", "ecrecover", "sha256",
+                                  "sha256_empty", "modexp"])
+def test_builder_precompile_events_match_reference(name):
+    """Each precompile call records its event (circuits/sig.py, ecc.py,
+    modexp.py; SHA-256 its input) in the port's builder as in the
+    reference's, field by field."""
+    code = _precompile_program(name)
+    t, j = _build(ttr, tb, code, {}, 0, b""), _build(jtr, jb, code, {}, 0, b"")
+    _same_builder(t, j)
+    for field in ("sig_events", "ecadd_events", "ecmul_events",
+                  "modexp_events", "sha256_inputs", "mulmod_events"):
+        assert _plain(getattr(t, field)) == _plain(getattr(j, field)), field
+    counts = {f: len(getattr(t, f)) for f in (
+        "sig_events", "ecadd_events", "ecmul_events", "modexp_events",
+        "sha256_inputs")}
+    key = {"ecadd": "ecadd_events", "ecmul": "ecmul_events",
+           "ecrecover": "sig_events", "sha256": "sha256_inputs",
+           "sha256_empty": "sha256_inputs", "modexp": "modexp_events"}[name]
+    assert counts == {f: int(f == key) for f in counts}
+    if name == "ecrecover":
+        assert t.sig_events[0].address == tsecp.eth_address(0x5EED_BEEF_F00D)
+    if name.startswith("sha256"):
+        assert t.sha256_inputs == [bytes(range(40)) if name == "sha256" else b""]
 
 
 def test_builder_multi_tx_workload_matches_reference(monkeypatch):

@@ -4,7 +4,8 @@ its bucket-step form, K6 once and eight times), the sharded ops on an
 NCCL group of one rank against the unsharded ones, the MSM's K6 launch
 count, and the k=5 demo, k=9 Keccak and k=9 EVM golden proofs on the
 card, and the golden proofs of the EVM's table partners (MulMod, Exp,
-Bytecode, Tx, Copy, RLP) on the card.
+Bytecode, Tx, Copy, RLP) and of the precompile circuits (SHA-256, ModExp,
+ECC) on the card.
 
 They skip without a card.  This file imports no JAX (the card's machine
 has none); run it there with
@@ -329,6 +330,25 @@ def test_partner_proof_on_card_matches_golden(dev, name):
     srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU)
     pk, vk = keygen(demo.partner_golden(name), k, srs)
     proof = prove(pk, demo.partner_golden(name), [], srs,
+                  rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED))
+    assert len(proof) == length
+    assert hashlib.sha256(proof).hexdigest() == sha
+    assert verify(vk, [], proof)
+
+
+@pytest.mark.parametrize("name", ["sha256", "modexp", "ecc"])
+def test_precompile_proof_on_card_matches_golden(dev, name):
+    """The precompile circuits at k=9 (plonk/demo.py's goldens)."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    k, sha, length = demo.PRECOMPILE_GOLDENS[name]
+    srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU)
+    pk, vk = keygen(demo.precompile_golden(name), k, srs)
+    proof = prove(pk, demo.precompile_golden(name), [], srs,
                   rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED))
     assert len(proof) == length
     assert hashlib.sha256(proof).hexdigest() == sha

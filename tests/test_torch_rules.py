@@ -49,7 +49,9 @@ PIPELINE = {
     "tracer": ("__init__", "evm"),
     "witness": ("trace", "builder", "test_ctx", "block", "rw"),
     "circuits": ("evm", "block", "state", "keccak", "mulmod", "exp",
-                 "bytecode", "rlp", "tx", "copy"),
+                 "bytecode", "rlp", "tx", "copy", "sha256", "ecblocks", "ecc",
+                 "modexp", "sig"),
+    "crypto": ("keccak", "secp256k1", "sha256"),
 }
 
 

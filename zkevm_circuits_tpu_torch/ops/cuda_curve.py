@@ -58,10 +58,27 @@ def _is_zero(x):
     return (x == 0).all(dim=-1, keepdim=True)
 
 
+PLAIN_ROWS = 1 << 14  # points a plain add takes at once
+
+
 def g1_add_plain(ax, ay, az, bx, by, bz, mode: str = "complete"):
     """Plain version of K5 over (..., 32) u8 Montgomery Fq coordinates.
     The complete mode's doubling (crypto/curve.py::g1_double) shares the
-    stacked product steps of the addition."""
+    stacked product steps of the addition.  Its limb products take a few
+    hundred bytes of temporaries a coordinate byte, so it runs PLAIN_ROWS
+    points at a time."""
+    coords = torch.broadcast_tensors(ax, ay, az, bx, by, bz)
+    shape = coords[0].shape
+    n = coords[0].numel() // 32
+    if n <= PLAIN_ROWS:
+        return _add_rows(*coords, mode=mode)
+    rows = [t.reshape(n, 32) for t in coords]
+    outs = [_add_rows(*(t[s:s + PLAIN_ROWS] for t in rows), mode=mode)
+            for s in range(0, n, PLAIN_ROWS)]
+    return tuple(torch.cat(o).reshape(shape) for o in zip(*outs))
+
+
+def _add_rows(ax, ay, az, bx, by, bz, mode: str):
     cs = _consts(FIELD_FQ, ax.device)
     x1, y1, z1, x2, y2, z2 = (to_limbs(t) for t in (ax, ay, az, bx, by, bz))
     add = lambda a, b: add_limbs(a, b, cs)  # noqa: E731

@@ -264,3 +264,69 @@ def partner_golden(name: str, m: dict | None = None):
     if name == "rlp":
         return m["rlp"].RlpCircuit([Transaction(**kw) for kw in RLP_GOLDEN_TXS])
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# the precompile circuits' goldens: k=9 proofs (Srs.unsafe_setup(9,
+# tau=PARTNER_GOLDEN_TAU), no instances, rng=np.random.default_rng(
+# PARTNER_GOLDEN_SEED)) over the witnesses of the reference's tests, each
+# proof's sha256 and length made by the reference (the JAX package on the
+# CPU, native library built); the port's proof must equal it.  Sig has no
+# golden: one signature needs k=13 (see service/bench_circuits.py).
+
+# tests/test_sha256_circuit.py::MSGS: 1, 1 and 2 blocks
+SHA256_GOLDEN_MESSAGES = (b"abc", b"", bytes(range(100)))
+# (base, exponent, modulus) of tests/test_modexp_circuit.py::
+# test_modexp_circuit_satisfied
+MODEXP_GOLDEN_EVENTS = (
+    (3, 5, 1009),
+    (2**200 + 7, 2**130 + 3, (1 << 255) - 19),
+    (2**255 + 17, 65537, 10**60 + 7),
+)
+# tests/test_ecc_circuit.py::test_ecadd_cases_satisfied: P = 5G, Q = 11G
+ECC_GOLDEN_SCALARS = (5, 11)
+
+# name: (k, sha256, proof length)
+PRECOMPILE_GOLDENS = {
+    "sha256": (9, "45c72fb2a0737ad50b2c767647ec55fba309987630d4aa8c4916c10878bfba7d", 25472),
+    "modexp": (9, "13ee280e62d8f6941a05d3311c9da53ad1dc9489f580a94cc85da1246882763d", 98720),
+    "ecc": (9, "8587ffa1b7065d47a9fcc0bb792d676b38744e097a44380bedbfca088421da4a", 110080),
+}
+
+
+def precompile_modules() -> dict:
+    """This package's modules that precompile_golden builds from."""
+    from ..circuits import ecc, modexp, sha256
+    from ..crypto import curve, params
+
+    return dict(sha256=sha256, modexp=modexp, ecc=ecc, curve=curve,
+                params=params)
+
+
+def precompile_golden(name: str, m: dict | None = None):
+    """The circuit of golden `name` (a key of PRECOMPILE_GOLDENS), built
+    from the modules `m` (default: precompile_modules(); another package's
+    modules of the same names build the same witness there)."""
+    m = m or precompile_modules()
+    if name == "sha256":
+        return m["sha256"].Sha256Circuit(list(SHA256_GOLDEN_MESSAGES))
+    if name == "modexp":
+        ev = m["modexp"].ModExpEvent
+        return m["modexp"].ModExpCircuit([
+            ev(base=b, exponent=e, modulus=n, result=pow(b, e, n) if n else 0)
+            for b, e, n in MODEXP_GOLDEN_EVENTS])
+    if name == "ecc":
+        add, mul = m["curve"].host_g1_add, m["curve"].host_g1_mul
+        gen, q = m["params"].G1_GEN, m["params"].FQ_MODULUS
+        ev, O = m["ecc"].EcAddEvent, (0, 0)
+        aff = lambda p: O if p is None else p  # noqa: E731
+        P, Q = (mul(gen, s) for s in ECC_GOLDEN_SCALARS)
+        return m["ecc"].EccCircuit(add_events=[
+            ev(p=P, q=Q, r=aff(add(P, Q))),       # generic
+            ev(p=P, q=P, r=aff(add(P, P))),       # double
+            ev(p=P, q=(P[0], -P[1] % q), r=O),    # P + (-P)
+            ev(p=O, q=Q, r=Q),                    # O + Q
+            ev(p=P, q=O, r=P),                    # P + O
+            ev(p=O, q=O, r=O),                    # O + O
+        ])
+    raise KeyError(name)

@@ -18,6 +18,14 @@ over the copy events of one transaction's CALLDATACOPY, CODECOPY and LOG
 data (`copy_workload`), and the Bytecode circuit over seeded bytecodes
 (`bytecode_workload`), each filling at least PARTNER_FILL of the usable
 rows of 2^k.
+
+`precompile_prove_bench(name, k, seed)` does the same for the precompile
+circuits at their default parameters (`precompile_circuit`): the Sig
+circuit over one seeded ECDSA (`sig_workload`), the ECC circuit over one
+seeded EcMul and seeded EcAdds (`ecc_workload`), the ModExp circuit over
+seeded 256-bit events (`modexp_workload`) and the SHA-256 circuit over
+seeded messages (`sha256_workload`), each but Sig filling at least
+PRECOMPILE_FILL of the usable rows of 2^k.
 """
 
 from __future__ import annotations
@@ -30,10 +38,19 @@ import torch
 
 from ..circuits.bytecode import BytecodeCircuit
 from ..circuits.copy import CopyCircuit
+from ..circuits.ecc import EV_ROWS as ECC_EV_ROWS
+from ..circuits.ecc import EcAddEvent, EccCircuit, EcMulEvent
 from ..circuits.evm import EvmCircuit, EvmParams
 from ..circuits.exp import ExpCircuit
+from ..circuits.modexp import ModExpCircuit, ModExpEvent, modexp_steps
+from ..circuits.sha256 import ROWS_PER_BLOCK, Sha256Circuit
+from ..circuits.sig import EV_ROWS as SIG_EV_ROWS
+from ..circuits.sig import SigCircuit, SigEvent
 from ..circuits.state import StateCircuit, StateParams
+from ..crypto import secp256k1
+from ..crypto.curve import host_g1_add, host_g1_mul
 from ..crypto.keccak import keccak256
+from ..crypto.params import FQ_MODULUS, FR_MODULUS, G1_GEN
 from ..device import resolve
 from ..plonk.circuit import usable_rows
 from ..plonk.keygen import keygen
@@ -501,6 +518,168 @@ def partner_prove_bench(name: str, k: int = 16, seed: int = 7, device=None,
     Returns {"k", "workload", "srs_s", "keygen_s", "prove_s", "verify_s",
     "ok", "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
     circuit, stats = partner_circuit(name, k, seed)
+    log(f"[{name}_bench k={k}] workload {stats}")
+    return {**_prove_verify(lambda: circuit, k, resolve(device)),
+            "workload": stats}
+
+
+# ---------------------------------------------------------------------------
+# the precompile circuits at full width
+PRECOMPILE_FILL = 0.9  # the least share of the usable rows a workload fills
+SHA256_EDGE_LENGTHS = (0, 55, 56, 64)  # the padding's edges: 1, 1, 2, 2 blocks
+
+
+def _sha256_blocks(n: int) -> int:
+    return (n + 9 + 63) // 64
+
+
+def sha256_workload(seed: int, k: int):
+    """The edge lengths, then seeded messages of 0-300 bytes while their
+    72-row blocks fit the usable rows of 2^k; the last ones shrink to fill
+    the whole blocks that fit exactly.  Returns (messages, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    max_blocks = cap // ROWS_PER_BLOCK
+    msgs = [rng.bytes(n) for n in SHA256_EDGE_LENGTHS]
+    blocks = sum(_sha256_blocks(n) for n in SHA256_EDGE_LENGTHS)
+    while blocks < max_blocks:
+        n = int(rng.integers(0, 301))
+        room = max_blocks - blocks
+        if _sha256_blocks(n) > room:
+            n = int(rng.integers(0, 64 * room - 8))
+        msgs.append(rng.bytes(n))
+        blocks += _sha256_blocks(n)
+    rows = blocks * ROWS_PER_BLOCK
+    return msgs, {"messages": len(msgs), "blocks": blocks, "rows": rows,
+                  "usable_rows": cap, "fill": rows / cap}
+
+
+def _mm_rows(events) -> int:
+    return sum(len(ev.mulmod_events()) for ev in events)
+
+
+def _fill_stats(rows: int, mulmod_rows: int, cap: int) -> dict:
+    """The circuit's own rows and its embedded MulMod circuit's rows (its
+    events and one padding row) share the usable rows; the fill is the
+    share of whichever uses more.  The MulMod rows stop one short of the
+    usable rows: the circuit's disabled rows look up the all-zero tuple,
+    which only a disabled MulMod row holds (its padding row is enabled)."""
+    return {"rows": rows, "mulmod_rows": mulmod_rows, "usable_rows": cap,
+            "fill": max(rows, mulmod_rows) / cap}
+
+
+def ecc_workload(seed: int, k: int):
+    """One seeded EcMul (a seeded multiple of G, a seeded 256-bit scalar),
+    then the EcAdd cases P = O, Q = O, P = -Q, P = Q and O + O, then EcAdds
+    of seeded points until the next one's MulMod rows would not fit the
+    usable rows of 2^k (see _fill_stats).  Returns (add_events, mul_events, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    scalar = lambda: int.from_bytes(rng.bytes(32), "big")  # noqa: E731
+    point = lambda: host_g1_mul(G1_GEN, scalar() % (FR_MODULUS - 1) + 1)  # noqa: E731
+    O = (0, 0)
+    aff = lambda p: O if p is None else p  # noqa: E731
+    P, e = point(), scalar()
+    muls = [EcMulEvent(p=P, k=e, r=aff(host_g1_mul(P, e)))]
+    mm = 1 + _mm_rows(muls)
+    P, Q = point(), point()
+    cases = [EcAddEvent(p=O, q=Q, r=Q), EcAddEvent(p=P, q=O, r=P),
+             EcAddEvent(p=P, q=(P[0], -P[1] % FQ_MODULUS), r=O),
+             EcAddEvent(p=P, q=P, r=aff(host_g1_add(P, P))),
+             EcAddEvent(p=O, q=O, r=O)]
+    adds = []
+    while True:
+        if cases:
+            ev = cases.pop(0)
+        else:
+            P, Q = point(), point()
+            ev = EcAddEvent(p=P, q=Q, r=aff(host_g1_add(P, Q)))
+        rows = _mm_rows([ev])
+        if mm + rows >= cap or len(adds) + 1 + ECC_EV_ROWS * len(muls) > cap:
+            break
+        adds.append(ev)
+        mm += rows
+    return adds, muls, {"adds": len(adds), "muls": len(muls),
+                        **_fill_stats(len(adds) + ECC_EV_ROWS * len(muls),
+                                      mm, cap)}
+
+
+def modexp_workload(seed: int, k: int):
+    """ModExp events of seeded 256-bit bases and moduli: exponent 0,
+    exponent 1 and modulus 0 first, then seeded 256-bit exponents while
+    their square-and-multiply steps fit, then shorter exponents that fill
+    the usable rows of 2^k (see _fill_stats).  Each step is one row of the
+    circuit and one of its MulMod circuit (which adds a padding row).
+    Returns (events, stats)."""
+    rng = np.random.default_rng(seed)
+    cap = usable_rows(1 << k)
+    word = lambda: int.from_bytes(rng.bytes(32), "big")  # noqa: E731
+    events, rows = [], 0
+
+    def add(base, e, n):
+        nonlocal rows
+        steps, result = modexp_steps(base, e, n)
+        events.append(ModExpEvent(base=base, exponent=e, modulus=n,
+                                  result=result))
+        rows += len(steps)
+
+    for base, e, n in ((word(), 0, word()), (word(), 1, word()),
+                       (word(), word(), 0)):
+        add(base, e, n)
+    while rows + 2 < cap:
+        # a b-bit exponent takes at most 2 (b - 1) steps (one for b = 1)
+        bits = min(256, (cap - 2 - rows) // 2 + 1)
+        e = (word() >> (256 - bits)) | (1 << (bits - 1))
+        add(word(), e, word())
+    return events, {"events": len(events), **_fill_stats(rows, rows + 1, cap)}
+
+
+def sig_workload(seed: int, k: int):
+    """One ECDSA signature of a seeded message hash by a seeded key: the
+    rows one signature takes, not padded.  Returns (events, stats)."""
+    rng = np.random.default_rng(seed)
+    sk = int.from_bytes(rng.bytes(32), "big") % (secp256k1.N - 1) + 1
+    z = rng.bytes(32)
+    r, s, _ = secp256k1.sign(sk, z)
+    events = [SigEvent(msg_hash=int.from_bytes(z, "big"), r=r, s=s,
+                       pubkey=secp256k1.pubkey(sk))]
+    cap = usable_rows(1 << k)
+    return events, {"signatures": len(events),
+                    **_fill_stats(SIG_EV_ROWS * len(events),
+                                  1 + _mm_rows(events), cap)}
+
+
+def precompile_circuit(name: str, k: int, seed: int):
+    """(circuit, stats) of the `name` workload ("sig", "ecc", "modexp" or
+    "sha256") at degree `k`, the circuit at its default parameters; the
+    stats carry the host seconds of the workload as "workload_s"."""
+    t0 = time.perf_counter()
+    if name == "sig":
+        events, stats = sig_workload(seed, k)
+        circuit = SigCircuit(events)
+    elif name == "ecc":
+        adds, muls, stats = ecc_workload(seed, k)
+        circuit = EccCircuit(add_events=adds, mul_events=muls)
+    elif name == "modexp":
+        events, stats = modexp_workload(seed, k)
+        circuit = ModExpCircuit(events)
+    elif name == "sha256":
+        msgs, stats = sha256_workload(seed, k)
+        circuit = Sha256Circuit(msgs)
+    else:
+        raise KeyError(name)
+    stats["workload_s"] = time.perf_counter() - t0
+    return circuit, stats
+
+
+def precompile_prove_bench(name: str, k: int = 13, seed: int = 7, device=None,
+                           log=print) -> dict:
+    """Workload, SRS, keygen, prove, verify of a precompile circuit (see
+    precompile_circuit) at degree `k`.
+
+    Returns {"k", "workload", "srs_s", "keygen_s", "prove_s", "verify_s",
+    "ok", "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
+    circuit, stats = precompile_circuit(name, k, seed)
     log(f"[{name}_bench k={k}] workload {stats}")
     return {**_prove_verify(lambda: circuit, k, resolve(device)),
             "workload": stats}

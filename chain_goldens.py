@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Make or check one of the Poseidon chain's goldens (plonk/demo.py) on the
+CPU, or count the shapes of the chain's circuits.
+
+    JAX_PLATFORMS=cpu python chain_goldens.py jax NAME   # the reference's proof
+    python chain_goldens.py port NAME                    # the port's proof
+    python chain_goldens.py shapes                       # the port's circuits
+
+NAME is demo_poseidon (the k=5 DemoCircuit under the Poseidon transcript),
+poseidon, mpt or pi.  `jax` proves the golden's witness with the JAX
+package, the reference, and prints the lines PERF.md quotes as the
+golden's origin: keygen seconds, prove seconds, "RESULT k sha256 bytes",
+and the verifier's verdict with the total seconds.  Run it from the
+repository root (its DemoCircuit is tests/test_plonk_prove.py's); the
+JAX package's native library (`make -C native`) makes it faster.  `port`
+proves the same witness with the port on the CPU and prints the same
+lines and whether the proof equals the golden.  Each takes minutes (PI
+the longest).  `shapes` prints each circuit's advice columns and phases,
+fixed columns, gate polynomials, logUp inputs and quotient degree: the
+goldens' and those of service/bench_circuits.mpt_workload at k=9.
+"""
+
+import hashlib
+import os
+import sys
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+import numpy as np  # noqa: E402
+
+NAMES = ("demo_poseidon", "poseidon", "mpt", "pi")
+
+
+def _jax():
+    """The JAX package on the CPU, with its tests' DemoCircuit; a thread
+    clears its compile caches before the process runs out of memory maps
+    (each XLA:CPU executable holds three)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+    def clear():
+        while True:
+            time.sleep(5)
+            with open("/proc/self/maps") as f:
+                if sum(1 for _ in f) > 40_000:
+                    jax.clear_caches()
+
+    threading.Thread(target=clear, daemon=True).start()
+    from test_plonk_prove import DemoCircuit
+
+    from zkevm_circuits_tpu.circuits import mpt, pi, poseidon
+    from zkevm_circuits_tpu.crypto import keccak
+    from zkevm_circuits_tpu.plonk.keygen import keygen
+    from zkevm_circuits_tpu.plonk.prover import prove
+    from zkevm_circuits_tpu.plonk.verifier import verify
+    from zkevm_circuits_tpu.poly import transcript
+    from zkevm_circuits_tpu.poly.kzg import Srs
+    from zkevm_circuits_tpu.witness import mpt as mpt_witness
+
+    modules = dict(poseidon=poseidon, mpt=mpt, pi=pi, keccak=keccak,
+                   mpt_witness=mpt_witness)
+    return (DemoCircuit, modules, Srs.unsafe_setup, keygen, prove, verify,
+            transcript, {})
+
+
+def _port():
+    import torch
+
+    torch.set_num_threads(2)
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly import transcript
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    return (demo.DemoCircuit, demo.chain_modules(), Srs.unsafe_setup, keygen,
+            prove, verify, transcript, {"device": "cpu"})
+
+
+def prove_golden(side: str, name: str) -> bool:
+    from zkevm_circuits_tpu_torch.plonk import demo
+
+    (Demo, modules, setup, keygen, prove, verify, tr, dev) = \
+        _jax() if side == "jax" else _port()
+    t0 = time.time()
+    kw, reader = {}, None
+    if name == "demo_poseidon":
+        k, tau, seed = demo.K, demo.GOLDEN_TAU, demo.POSEIDON_TRANSCRIPT_GOLDEN_SEED
+        sha = demo.POSEIDON_TRANSCRIPT_GOLDEN_SHA256
+        make, inst = Demo, [[demo.A_IN]]
+        kw, reader = {"transcript": tr.PoseidonTranscript()}, tr.PoseidonReader
+    else:
+        k, sha, _ = demo.CHAIN_GOLDENS[name]
+        tau, seed = demo.PARTNER_GOLDEN_TAU, demo.PARTNER_GOLDEN_SEED
+        make = lambda: demo.chain_golden(name, modules)[0]  # noqa: E731
+        inst = demo.chain_golden(name, modules)[1]
+    srs = setup(k, tau=tau, **dev)
+    t1 = time.time()
+    pk, vk = keygen(make(), k, srs, **dev)
+    print(name, "keygen", time.time() - t1, flush=True)
+    t2 = time.time()
+    proof = prove(pk, make(), inst, srs, rng=np.random.default_rng(seed),
+                  **kw, **dev)
+    print(name, "prove", time.time() - t2, flush=True)
+    digest = hashlib.sha256(bytes(proof)).hexdigest()
+    print(name, "RESULT", k, digest, len(proof), flush=True)
+    ok = verify(vk, inst, proof,
+                **({"transcript": reader(proof)} if reader else {}))
+    print(name, "verify", ok, time.time() - t0, flush=True)
+    if side == "port":
+        print(name, "golden", digest == sha, flush=True)
+    return bool(ok) and (side == "jax" or digest == sha)
+
+
+def shapes():
+    from zkevm_circuits_tpu_torch.circuits.poseidon import PoseidonCircuit
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.circuit import ConstraintSystem
+    from zkevm_circuits_tpu_torch.plonk.keygen import quotient_degree
+    from zkevm_circuits_tpu_torch.service.bench_circuits import mpt_workload
+
+    stor, acct, _ = mpt_workload(20261016, 9)  # chip_smoke.SEED
+    for name, c in (("poseidon", PoseidonCircuit([])),
+                    ("mpt", demo.chain_golden("mpt")[0]),
+                    ("pi", demo.chain_golden("pi")[0]),
+                    ("mpt_workload storage", stor),
+                    ("mpt_workload account", acct)):
+        cs = ConstraintSystem()
+        c.configure(cs)
+        print(f"{name}: advice {cs.num_advice} (phases "
+              f"{max(cs.advice_phases) + 1}), fixed {cs.num_fixed}, gate "
+              f"polynomials {sum(len(g.polys) for g in cs.gates)}, logUps "
+              f"{len(cs.logups)} of {sum(len(lg.inputs) for lg in cs.logups)} "
+              f"inputs, quotient degree {quotient_degree(cs)}")
+    return True
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["shapes"]:
+        ok = shapes()
+    elif len(sys.argv) == 3 and sys.argv[1] in ("jax", "port") \
+            and sys.argv[2] in NAMES:
+        ok = prove_golden(sys.argv[1], sys.argv[2])
+    else:
+        sys.exit(__doc__)
+    sys.exit(0 if ok else 1)

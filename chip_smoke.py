@@ -12,10 +12,11 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. twelve paths, each with the launch counts set to 0 just before it
+  3. fourteen paths, each with the launch counts set to 0 just before it
      and read, with the path's seconds, just after it; the run fails if a
      kernel the path names was not launched on it (K4 on the two mesh
-     paths, every other kernel, both forms of K5 included, on all twelve):
+     paths, every other kernel, both forms of K5 included, on all
+     fourteen):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -24,10 +25,11 @@ Phases, one line each (the process exits non-zero on any failure):
                  state bit is rejected;
      state_k16   the State circuit at DEGREE=16 (service.bench_circuits):
                  SRS, keygen, prove, verify, with per-phase seconds;
-     keccak_k16  the Keccak circuit at DEGREE=16, full width (Z=8, 658
-                 advice columns), 327 permutations of seeded messages:
-                 SRS, keygen, prove, verify, per-phase seconds, peak
-                 device memory;
+     keccak_k15  the Keccak circuit at k=KECCAK_K = 15 (the reference's
+                 DEGREE=16, cut for the script's time), full width (Z=8,
+                 658 advice columns), every permutation that fits, of
+                 seeded messages: SRS, keygen, prove, verify, per-phase
+                 seconds, peak device memory;
      evm_k9      the EVM circuit at k=9 over plonk/demo.py's program,
                  through the port's tracer and builder: its sha256 equals
                  the reference's proof (golden), it verifies, and a memory
@@ -59,6 +61,22 @@ Phases, one line each (the process exits non-zero on any failure):
                       precompile_prove_bench): SRS, keygen, prove, verify,
                       per-phase seconds, resident and peak memory; then Sig
                       with a flipped scalar bit, which must be rejected;
+     poseidon_k9        the Poseidon chain's goldens (plonk/demo.py): the
+                        k=5 DemoCircuit under the Poseidon transcript
+                        (accepted by the PoseidonReader only, rejected with
+                        a wrong instance), the Poseidon (k=9), MPT (k=7)
+                        and PI (k=9) circuits, each equal to the
+                        reference's proof and verified, and each with a
+                        gate-only corruption that must be rejected;
+     poseidon_mpt_full  a seeded two-level state transition
+                        (service.bench_circuits.mpt_workload): its storage-
+                        subtrie MPT circuit (>= 90% of the usable rows) and
+                        account-trie MPT circuit at k=14, and the Poseidon
+                        circuit at k=16 over its first events, full width,
+                        under the Poseidon transcript: SRS, keygen, prove,
+                        verify, per-phase seconds, resident and peak
+                        memory; the batched permutation on the card against
+                        the host one, byte for byte;
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -67,7 +85,7 @@ Phases, one line each (the process exits non-zero on any failure):
      mesh_state_k16  state_prove_bench(16, mesh=group): its proof's sha256
                      equals state_k16's, and it verifies;
   4. a `kernels` JSON line: each kernel (K5's two forms apart) with its
-     launches on the Keccak k=16 path (K4: on mesh_state_k16) and, beside
+     launches on the Keccak path (K4: on mesh_state_k16) and, beside
      them, on every path, its check from phase 2, its time, bound and
      plain time, and those of its other shapes and forms;
   5. the last line: {"ok": true, "device": {...}}.
@@ -596,8 +614,13 @@ def keccak_messages(seed: int, max_perms: int) -> list[bytes]:
     return msgs
 
 
-def prove_keccak_k16(dev, log, gpu: str) -> list:
-    """The Keccak circuit at DEGREE=16, full width."""
+# The Keccak path's degree: the reference's DEGREE=16, cut to 15 after a
+# whole-script run passed 1,000 s of the 1,200 s limit (PERF.md, section 6).
+KECCAK_K = 15
+
+
+def prove_keccak_full(dev, log, gpu: str) -> list:
+    """The Keccak circuit at k=KECCAK_K, full width."""
     from zkevm_circuits_tpu_torch.circuits.keccak import ROWS_PER_PERM, KeccakCircuit
     from zkevm_circuits_tpu_torch.plonk.circuit import usable_rows
     from zkevm_circuits_tpu_torch.plonk.keygen import keygen
@@ -605,7 +628,7 @@ def prove_keccak_k16(dev, log, gpu: str) -> list:
     from zkevm_circuits_tpu_torch.plonk.verifier import verify
     from zkevm_circuits_tpu_torch.poly.kzg import Srs
 
-    k = 16
+    k = KECCAK_K
     msgs = keccak_messages(SEED, usable_rows(1 << k) // ROWS_PER_PERM)
     t0 = time.perf_counter()
     srs = Srs.unsafe_setup(k, tau=0xBE2C4, device=dev)
@@ -621,17 +644,17 @@ def prove_keccak_k16(dev, log, gpu: str) -> list:
     ok = verify(vk, [], proof)
     t4 = time.perf_counter()
     cs = pk.vk.cs
-    log(f"[keccak k=16] card={gpu!r} messages={len(msgs)} "
+    log(f"[keccak k={k}] card={gpu!r} messages={len(msgs)} "
         f"permutations={len(circ.states)} advice={cs.num_advice} "
         f"gate_polys={sum(len(g.polys) for g in cs.gates)} k_ext={pk.k_ext} "
         f"srs {t1 - t0:.2f} s keygen {t2 - t1:.2f} s prove {t3 - t2:.2f} s "
         f"verify {t4 - t3:.2f} s ok={ok} proof_bytes={len(proof)} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
-    log(f"[keccak k=16] prove phases (s, card={gpu!r}): "
+    log(f"[keccak k={k}] prove phases (s, card={gpu!r}): "
         f"{json.dumps({k_: round(v, 3) for k_, v in phases.items()})}")
-    log(f"[keccak k=16] keygen phases (s, card={gpu!r}): "
+    log(f"[keccak k={k}] keygen phases (s, card={gpu!r}): "
         f"{json.dumps({k_: round(v, 3) for k_, v in kphases.items()})}")
-    return [] if ok else ["keccak k=16 proof did not verify"]
+    return [] if ok else [f"keccak k={k} proof did not verify"]
 
 
 def _mem_byte_flip(circuit_cls):
@@ -735,36 +758,39 @@ def prove_evm_k14(dev, log, gpu: str) -> list:
     return fails
 
 
-def _d0_bump(circuit_cls):
-    """`circuit_cls` (circuits/exp.py::ExpCircuit) with the low byte of d
-    on the first (result) row bumped by one
-    (tests/test_exp_circuit.py::test_exp_circuit_catches_wrong_result):
-    the byte stays in the byte table, so only the gate 'exp mul lo' fails,
-    the prover makes a proof and the verifier must reject it."""
+def _tamper(circuit_cls, column, rows, new):
+    """`circuit_cls` with its phase-0 advice column column(circuit) set to
+    new(value) on each row of `rows` (values as plain ints).  Each use
+    below changes a cell that only gates read: no lookup fails, so the
+    prover makes a proof, and the verifier must reject it."""
     from zkevm_circuits_tpu_torch.crypto.field import fr
 
     F = fr()
+    r_inv = pow(F.R, -1, F.modulus)
 
     class Corrupt(circuit_cls):
         def synthesize(self, phase, n, challenges, instances):
             cols = super().synthesize(phase, n, challenges, instances)
             if phase == 0:
-                arr = np.array(cols[self.c_d[0]])
-                cur = F.to_ints(arr[:1])[0] * pow(F.R, -1, F.modulus) % F.modulus
-                arr[0] = F.from_int((cur + 1) % 256 * F.R % F.modulus)
-                cols[self.c_d[0]] = arr
+                c = column(self)
+                arr = np.array(cols[c])
+                for row in rows:
+                    cur = F.to_ints(arr[row:row + 1])[0] * r_inv % F.modulus
+                    arr[row] = F.from_int(new(cur) % F.modulus * F.R % F.modulus)
+                cols[c] = arr
             return cols
 
     return Corrupt
 
 
-def _prove_goldens(dev, log, path: str, goldens: dict, make, corrupt) -> list:
+def _prove_goldens(dev, log, path: str, goldens: dict, make, corrupt: dict,
+                   instances=lambda name: []) -> list:
     """Each golden of `goldens` ({name: (k, sha256, proof length)}) over
-    its circuit make(name): SRS, keygen and prove on the card; the proof's
-    sha256 and length equal the golden's (the reference's proof), and it
-    verifies.  `corrupt` = (name, label, circuit -> corrupted circuit):
-    that golden's proving key proves the corrupted witness, which the
-    verifier must reject."""
+    its circuit make(name) and instances(name): SRS, keygen and prove on
+    the card; the proof's sha256 and length equal the golden's (the
+    reference's proof), and it verifies.  `corrupt` = {name: (label,
+    circuit -> corrupted circuit)}: that golden's proving key proves the
+    corrupted witness, which the verifier must reject."""
     from zkevm_circuits_tpu_torch.plonk import demo
     from zkevm_circuits_tpu_torch.plonk.keygen import keygen
     from zkevm_circuits_tpu_torch.plonk.prover import prove
@@ -773,25 +799,27 @@ def _prove_goldens(dev, log, path: str, goldens: dict, make, corrupt) -> list:
 
     fails = []
     for name, (k, sha, length) in goldens.items():
+        inst = instances(name)
         t0 = time.perf_counter()
         srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU, device=dev)
         pk, vk = keygen(make(name), k, srs, device=dev)
         t1 = time.perf_counter()
-        proof = prove(pk, make(name), [], srs,
+        proof = prove(pk, make(name), inst, srs,
                       rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED),
                       device=dev)
         t2 = time.perf_counter()
         digest = hashlib.sha256(proof).hexdigest()
         golden = digest == sha and len(proof) == length
-        ok = verify(vk, [], proof)
+        ok = verify(vk, inst, proof)
         line = (f"[{path}] {name} k={k} setup+keygen {t1 - t0:.2f} s "
                 f"prove {t2 - t1:.2f} s proof_bytes={len(proof)} "
                 f"sha256={digest} golden={golden} verify={ok}")
-        if name == corrupt[0]:
-            bad = prove(pk, corrupt[2](make(name)), [], srs,
+        if name in corrupt:
+            label, bad_circuit = corrupt[name]
+            bad = prove(pk, bad_circuit(make(name)), inst, srs,
                         rng=np.random.default_rng(1), device=dev)
-            rejected = not verify(vk, [], bad)
-            line += f" {corrupt[1]}_rejected={rejected}"
+            rejected = not verify(vk, inst, bad)
+            line += f" {label}_rejected={rejected}"
             if not rejected:
                 fails.append(f"{path}: the corrupted {name} proof verified")
         log(line)
@@ -804,13 +832,18 @@ def _prove_goldens(dev, log, path: str, goldens: dict, make, corrupt) -> list:
 
 def prove_partners_k9(dev, log) -> list:
     """The EVM's table partners at small k (plonk/demo.py's goldens: the
-    witnesses of the reference's tests); the Exp circuit with its result
-    byte bumped proves and is rejected."""
+    witnesses of the reference's tests); the Exp circuit with the low byte
+    of d on its first (result) row bumped by one proves and is rejected
+    (tests/test_exp_circuit.py::test_exp_circuit_catches_wrong_result:
+    the byte stays in the byte table, so only the gate 'exp mul lo'
+    fails)."""
     from zkevm_circuits_tpu_torch.plonk import demo
 
+    bump = lambda c: _tamper(type(c), lambda s: s.c_d[0], [0],  # noqa: E731
+                             lambda v: (v + 1) % 256)(c.events)
     return _prove_goldens(
         dev, log, "partners_k9", demo.PARTNER_GOLDENS, demo.partner_golden,
-        ("exp", "d0_bump", lambda c: _d0_bump(type(c))(c.events)))
+        {"exp": ("d0_bump", bump)})
 
 
 def _log_bench(log, gpu: str, name: str, r: dict, resident: float):
@@ -853,45 +886,19 @@ def prove_partners_k16(dev, log, gpu: str) -> list:
     return fails
 
 
-def _flip_bit(circuit_cls, column, row: int):
-    """`circuit_cls` with the bit in row `row` of its phase-0 advice column
-    column(circuit) flipped: SHA-256's digest word H'_0 on the first
-    message's last digest row (tests/test_sha256_circuit.py::
-    test_sha256_circuit_catches_wrong_digest: only "sha out rlc" fails),
-    or Sig's u1 scalar bit on walk row 101 (tests/test_sig_circuit.py::
-    test_sig_circuit_catches_tampered_scalar_bit: on the CPU the MockProver
-    finds only gates failing, 'sig tx mux 0/1', 'sig ty mux 0/1', 'sig u1h
-    walk').  No lookup fails, so the prover makes a proof; the verifier
-    must reject it."""
-    from zkevm_circuits_tpu_torch.crypto.field import fr
-
-    F = fr()
-
-    class Corrupt(circuit_cls):
-        def synthesize(self, phase, n, challenges, instances):
-            cols = super().synthesize(phase, n, challenges, instances)
-            if phase == 0:
-                c = column(self)
-                arr = np.array(cols[c])
-                cur = int(np.any(arr[row]))
-                arr[row] = F.from_int((1 - cur) * F.R % F.modulus)
-                cols[c] = arr
-            return cols
-
-    return Corrupt
-
-
 def prove_precompiles_k9(dev, log) -> list:
     """The precompile circuits at k=9 (plonk/demo.py's goldens: the
-    witnesses of the reference's tests); SHA-256 with a digest bit
-    flipped proves and is rejected."""
+    witnesses of the reference's tests); SHA-256 with the bit of its
+    digest word H'_0 flipped on the first message's last digest row proves
+    and is rejected (tests/test_sha256_circuit.py::
+    test_sha256_circuit_catches_wrong_digest: only "sha out rlc" fails)."""
     from zkevm_circuits_tpu_torch.plonk import demo
 
+    flip = lambda c: _tamper(type(c), lambda s: s.c_a[0], [71],  # noqa: E731
+                             lambda v: 1 - v)(c.messages)
     return _prove_goldens(
         dev, log, "precompiles_k9", demo.PRECOMPILE_GOLDENS,
-        demo.precompile_golden,
-        ("sha256", "digest_bit_flip",
-         lambda c: _flip_bit(type(c), lambda s: s.c_a[0], 71)(c.messages)))
+        demo.precompile_golden, {"sha256": ("digest_bit_flip", flip)})
 
 
 def prove_precompiles_k13(dev, log, gpu: str) -> list:
@@ -899,7 +906,10 @@ def prove_precompiles_k13(dev, log, gpu: str) -> list:
     workloads of service.bench_circuits (each but Sig >= 90% of the usable
     rows): SRS, keygen, prove, verify, per-phase seconds, the device memory
     still allocated when each starts and its peak; then the Sig circuit
-    with a scalar bit flipped, which must be rejected."""
+    with its u1 scalar bit on walk row 101 flipped, which must be rejected
+    (tests/test_sig_circuit.py::test_sig_circuit_catches_tampered_scalar_bit:
+    on the CPU the MockProver finds only gates failing, 'sig tx mux 0/1',
+    'sig ty mux 0/1', 'sig u1h walk')."""
     from zkevm_circuits_tpu_torch.plonk.keygen import keygen
     from zkevm_circuits_tpu_torch.plonk.prover import prove
     from zkevm_circuits_tpu_torch.plonk.verifier import verify
@@ -924,7 +934,7 @@ def prove_precompiles_k13(dev, log, gpu: str) -> list:
     t0 = time.perf_counter()
     srs = Srs.unsafe_setup(k, tau=0xBE2C4, device=dev)
     pk, vk = keygen(circuit, k, srs, device=dev)
-    flipped = _flip_bit(type(circuit), lambda s: s.c_b1, 101)
+    flipped = _tamper(type(circuit), lambda s: s.c_b1, [101], lambda v: 1 - v)
     bad = prove(pk, flipped(circuit.events), [], srs,
                 rng=np.random.default_rng(1), device=dev)
     rejected = not verify(vk, [], bad)
@@ -932,6 +942,140 @@ def prove_precompiles_k13(dev, log, gpu: str) -> list:
         f"({time.perf_counter() - t0:.2f} s)")
     if not rejected:
         fails.append(f"sig k={k}: the corrupted proof verified")
+    return fails
+
+
+def prove_poseidon_k9(dev, log) -> list:
+    """The Poseidon chain's goldens (plonk/demo.py).  The k=5 DemoCircuit
+    under the Poseidon transcript: its sha256 equals the reference's, the
+    PoseidonReader accepts it, and the verifier rejects it with the
+    default Blake2b reader and with a wrong instance.  Then the Poseidon
+    (k=9), MPT (k=7) and PI (k=9) circuits over the witnesses of the
+    reference's tests, each equal to its golden and verified, and each
+    with one cell changed that only gates read, which must be rejected:
+    Poseidon's final state of the first block (tests/test_poseidon.py::
+    test_poseidon_circuit_catches_wrong_state), the MPT's new root on the
+    three rows of the first update (tests/test_mpt_circuit.py::
+    test_mpt_circuit_catches_wrong_root) and PI's statement byte 10
+    (tests/test_pi_circuit.py::
+    test_pi_circuit_rejects_tampered_statement_byte)."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.poly.transcript import (
+        PoseidonReader, PoseidonTranscript)
+
+    fails = []
+    t0 = time.perf_counter()
+    srs = Srs.unsafe_setup(demo.K, tau=demo.GOLDEN_TAU, device=dev)
+    pk, vk = keygen(demo.DemoCircuit(), demo.K, srs, device=dev)
+    t1 = time.perf_counter()
+    inst = [[demo.A_IN]]
+    proof = prove(pk, demo.DemoCircuit(), inst, srs,
+                  transcript=PoseidonTranscript(),
+                  rng=np.random.default_rng(demo.POSEIDON_TRANSCRIPT_GOLDEN_SEED),
+                  device=dev)
+    t2 = time.perf_counter()
+    digest = hashlib.sha256(proof).hexdigest()
+    golden = (digest == demo.POSEIDON_TRANSCRIPT_GOLDEN_SHA256
+              and len(proof) == demo.POSEIDON_TRANSCRIPT_GOLDEN_LEN)
+    ok = verify(vk, inst, proof, transcript=PoseidonReader(proof))
+    blake = verify(vk, inst, proof)
+    wrong = verify(vk, [[demo.A_IN + 1]], proof,
+                   transcript=PoseidonReader(proof))
+    log(f"[poseidon_k9] demo k=5 poseidon transcript setup+keygen "
+        f"{t1 - t0:.2f} s prove {t2 - t1:.2f} s sha256={digest} "
+        f"golden={golden} verify={ok} blake2b_reader={blake} "
+        f"wrong_instance={wrong}")
+    if not golden:
+        fails.append("poseidon_k9: the Poseidon-transcript demo proof differs "
+                     "from the golden")
+    if not ok or blake or wrong:
+        fails.append("poseidon_k9: Poseidon-transcript verdicts wrong")
+    corrupt = {
+        "poseidon": ("final_state", lambda c: _tamper(
+            type(c), lambda s: s.c_s[0], [65], lambda v: 99)(c.events)),
+        "mpt": ("new_root", lambda c: _tamper(
+            type(c), lambda s: s.c_new_root, [0, 1, 2],
+            lambda v: v + 1)(c.updates)),
+        "pi": ("statement_byte", lambda c: _tamper(
+            type(c), lambda s: s.c_byte, [10], lambda v: 0x77)(c.pd)),
+    }
+    return fails + _prove_goldens(
+        dev, log, "poseidon_k9", demo.CHAIN_GOLDENS,
+        lambda name: demo.chain_golden(name)[0], corrupt,
+        instances=lambda name: demo.chain_golden(name)[1])
+
+
+MPT_K = 14
+POSEIDON_K = 16
+
+
+def prove_poseidon_mpt_full(dev, log, gpu: str) -> list:
+    """The MPT circuits of a seeded two-level state transition at k=14 and
+    the Poseidon circuit at k=16, full width, under the Poseidon
+    transcript (service.bench_circuits): the host workload and its
+    seconds; for the storage-subtrie circuit (>= MPT_FILL of the usable
+    rows) and the account-trie circuit, SRS, keygen, prove, verify with
+    the PoseidonReader, per-phase seconds, resident and peak memory; the
+    batched permutation on the card (K1) against the host permutation,
+    byte for byte, on the input states of the storage circuit's first
+    Poseidon events; then the Poseidon circuit over those events, one a
+    block, every block of 2^16."""
+    from zkevm_circuits_tpu_torch.circuits.poseidon import ROWS_PER_BLOCK
+    from zkevm_circuits_tpu_torch.crypto.field import fr
+    from zkevm_circuits_tpu_torch.crypto.poseidon import permute, permute_batch
+    from zkevm_circuits_tpu_torch.plonk.circuit import usable_rows
+    from zkevm_circuits_tpu_torch.service.bench_circuits import (
+        MPT_FILL, mpt_prove_bench, mpt_workload, poseidon_prove_bench)
+
+    fails = []
+    stor, acct, w = mpt_workload(SEED, MPT_K)
+    log(f"[mpt_workload k={MPT_K}] card={gpu!r} host {w['workload_s']:.2f} s "
+        f"{json.dumps(w)}")
+    if w["fill"] < MPT_FILL:
+        fails.append(f"mpt k={MPT_K} workload filled {w['fill']:.4f} of the rows")
+    for which in ("storage", "account"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev) / 2**30
+        r = mpt_prove_bench(which, MPT_K, (stor, acct, w), device=dev)
+        _log_bench(log, gpu, f"mpt_{which}", r, resident)
+        if not r["ok"]:
+            fails.append(f"mpt {which} k={MPT_K} proof did not verify")
+        del r
+    events = stor.poseidon_events()
+
+    # the batched permutation (K1 on the card) against the host one
+    F = fr()
+    p = F.modulus
+    blocks = usable_rows(1 << POSEIDON_K) // ROWS_PER_BLOCK
+    inputs = [[e.domain, e.in0, e.in1] for e in events[:blocks]]
+    mont = lambda rows: np.stack([F.from_ints([v * F.R % p for v in r])  # noqa: E731
+                                  for r in rows])
+    states = torch.as_tensor(mont(inputs), device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = permute_batch(states)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    want = mont([permute(s) for s in inputs])
+    t2 = time.perf_counter()
+    same = bool(np.array_equal(got.cpu().numpy(), want))
+    log(f"[poseidon permute_batch] card={gpu!r} states={len(inputs)} "
+        f"card {t1 - t0:.3f} s host {t2 - t1:.3f} s equal={same}")
+    if not same:
+        fails.append("permute_batch on the card differs from the host permute")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev) / 2**30
+    r = poseidon_prove_bench(POSEIDON_K, events, device=dev)
+    _log_bench(log, gpu, "poseidon", r, resident)
+    if not r["ok"]:
+        fails.append(f"poseidon k={POSEIDON_K} proof did not verify")
+    if r["workload"]["fill"] < 1:
+        fails.append(f"poseidon k={POSEIDON_K}: {r['workload']} leaves blocks empty")
     return fails
 
 
@@ -996,7 +1140,8 @@ def main() -> int:
     drive_path("demo_k5", lambda: prove_demo(dev, log), single)
     drive_path("keccak_k9", lambda: prove_keccak_k9(dev, log), single)
     drive_path("state_k16", lambda: prove_state(dev, log, gpu, digests), single)
-    drive_path("keccak_k16", lambda: prove_keccak_k16(dev, log, gpu), single)
+    drive_path(f"keccak_k{KECCAK_K}", lambda: prove_keccak_full(dev, log, gpu),
+               single)
     drive_path("evm_k9", lambda: prove_evm_k9(dev, log), single)
     drive_path("evm_k14", lambda: prove_evm_k14(dev, log, gpu), single)
     drive_path("partners_k9", lambda: prove_partners_k9(dev, log), single)
@@ -1004,6 +1149,9 @@ def main() -> int:
     drive_path("precompiles_k9", lambda: prove_precompiles_k9(dev, log), single)
     drive_path("precompiles_k13",
                lambda: prove_precompiles_k13(dev, log, gpu), single)
+    drive_path("poseidon_k9", lambda: prove_poseidon_k9(dev, log), single)
+    drive_path("poseidon_mpt_full",
+               lambda: prove_poseidon_mpt_full(dev, log, gpu), single)
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
@@ -1017,7 +1165,7 @@ def main() -> int:
     kernels = []
     for kid, name, source, replaces in KERNELS:
         r = rec[name]
-        main = "mesh_state_k16" if kid == "K4" else "keccak_k16"
+        main = "mesh_state_k16" if kid == "K4" else f"keccak_k{KECCAK_K}"
         # the record's other shapes and forms (K4's row form and 64
         # columns, K5's other modes, K6's Horner shape and times=8)
         extra = {k: v for k, v in r.items() if isinstance(v, dict)}

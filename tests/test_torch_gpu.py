@@ -3,9 +3,11 @@ version on the card, byte for byte (K5's three modes, its warp vote and
 its bucket-step form, K6 once and eight times), the sharded ops on an
 NCCL group of one rank against the unsharded ones, the MSM's K6 launch
 count, and the k=5 demo, k=9 Keccak and k=9 EVM golden proofs on the
-card, and the golden proofs of the EVM's table partners (MulMod, Exp,
-Bytecode, Tx, Copy, RLP) and of the precompile circuits (SHA-256, ModExp,
-ECC) on the card.
+card, the golden proofs of the EVM's table partners (MulMod, Exp,
+Bytecode, Tx, Copy, RLP), of the precompile circuits (SHA-256, ModExp,
+ECC) and of the Poseidon chain (the demo under the Poseidon transcript,
+Poseidon, MPT, PI) on the card, and the batched Poseidon permutation on
+the card against the host one.
 
 They skip without a card.  This file imports no JAX (the card's machine
 has none); run it there with
@@ -353,3 +355,61 @@ def test_precompile_proof_on_card_matches_golden(dev, name):
     assert len(proof) == length
     assert hashlib.sha256(proof).hexdigest() == sha
     assert verify(vk, [], proof)
+
+
+def test_permute_batch_on_card_matches_host(dev):
+    """The batched Poseidon permutation (K1 launches) on 4,096 seeded
+    states against the host permutation, byte for byte."""
+    from zkevm_circuits_tpu_torch.crypto.poseidon import permute, permute_batch
+
+    F = fr()
+    p = F.modulus
+    rng = np.random.default_rng(8)
+    states = [[0, 0, 0], [1, 2, 3], [p - 1, p - 1, p - 1]]
+    states += [[int.from_bytes(rng.bytes(32), "little") % p for _ in range(3)]
+               for _ in range(4096 - len(states))]
+    mont = lambda rows: np.stack([F.from_ints([v * F.R % p for v in r])  # noqa: E731
+                                  for r in rows])
+    before = cf.LAUNCHES["mont_mul"]
+    got = permute_batch(torch.as_tensor(mont(states), device=dev))
+    assert cf.LAUNCHES["mont_mul"] > before
+    assert np.array_equal(got.cpu().numpy(), mont([permute(s) for s in states]))
+
+
+def test_poseidon_transcript_proof_on_card_matches_golden(dev):
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.poly.transcript import (
+        PoseidonReader, PoseidonTranscript)
+
+    srs = Srs.unsafe_setup(demo.K, tau=demo.GOLDEN_TAU)
+    pk, vk = keygen(demo.DemoCircuit(), demo.K, srs)
+    proof = prove(pk, demo.DemoCircuit(), [[demo.A_IN]], srs,
+                  transcript=PoseidonTranscript(),
+                  rng=np.random.default_rng(demo.POSEIDON_TRANSCRIPT_GOLDEN_SEED))
+    assert len(proof) == demo.POSEIDON_TRANSCRIPT_GOLDEN_LEN
+    assert hashlib.sha256(proof).hexdigest() == demo.POSEIDON_TRANSCRIPT_GOLDEN_SHA256
+    assert verify(vk, [[demo.A_IN]], proof, transcript=PoseidonReader(proof))
+
+
+@pytest.mark.parametrize("name", ["poseidon", "mpt", "pi"])
+def test_chain_proof_on_card_matches_golden(dev, name):
+    """The Poseidon, MPT and PI circuits' goldens (plonk/demo.py)."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    k, sha, length = demo.CHAIN_GOLDENS[name]
+    srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU)
+    c, inst = demo.chain_golden(name)
+    pk, vk = keygen(c, k, srs)
+    proof = prove(pk, demo.chain_golden(name)[0], inst, srs,
+                  rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED))
+    assert len(proof) == length
+    assert hashlib.sha256(proof).hexdigest() == sha
+    assert verify(vk, inst, proof)

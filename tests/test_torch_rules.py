@@ -3,8 +3,9 @@ zkevm_circuits_tpu_torch/, chip_smoke.py or msm_state_timing.py imports
 JAX or the JAX package, or loads the JAX tree's native library; every
 module imports without a card or a compiler; the kernel build directory
 is git-ignored; each kernel source names the TPU kernel it replaces.  The
-EVM circuit's subpackages (types, tracer, witness, circuits) are held to
-the same rules."""
+EVM circuit's subpackages (types, tracer, witness, circuits) and the
+Poseidon chain's (crypto, trie, witness, circuits) are held to the same
+rules."""
 
 import ast
 import importlib
@@ -31,7 +32,7 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 SUBPACKAGES = ("circuits", "crypto", "ops", "parallel", "plonk", "poly",
-               "service", "tracer", "types", "witness")
+               "service", "tracer", "trie", "types", "witness")
 
 
 def test_rules_cover_every_subpackage():
@@ -47,11 +48,12 @@ def test_rules_cover_every_subpackage():
 PIPELINE = {
     "types": ("__init__", "evm", "rlp", "bytecode", "transaction"),
     "tracer": ("__init__", "evm"),
-    "witness": ("trace", "builder", "test_ctx", "block", "rw"),
+    "witness": ("trace", "builder", "test_ctx", "block", "rw", "mpt", "l2"),
     "circuits": ("evm", "block", "state", "keccak", "mulmod", "exp",
                  "bytecode", "rlp", "tx", "copy", "sha256", "ecblocks", "ecc",
-                 "modexp", "sig"),
-    "crypto": ("keccak", "secp256k1", "sha256"),
+                 "modexp", "sig", "poseidon", "mpt", "pi"),
+    "crypto": ("keccak", "secp256k1", "sha256", "poseidon"),
+    "trie": ("__init__", "zktrie"),
 }
 
 

@@ -330,3 +330,76 @@ def precompile_golden(name: str, m: dict | None = None):
             ev(p=O, q=O, r=O),                    # O + O
         ])
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# the Poseidon chain's goldens.  The k=5 DemoCircuit proved under the
+# Poseidon transcript (tests/test_poseidon_transcript.py: Srs.unsafe_setup(
+# 5, tau=GOLDEN_TAU), instance [[A_IN]], rng=np.random.default_rng(1),
+# transcript=PoseidonTranscript()); and the Poseidon, MPT and PI circuits
+# over the witnesses of the reference's tests, each with
+# Srs.unsafe_setup(k, tau=PARTNER_GOLDEN_TAU), rng=np.random.default_rng(
+# PARTNER_GOLDEN_SEED) and the Blake2b transcript (PI with its two
+# instance values, the others with none).  Each sha256 and length is the
+# reference's proof (the JAX package on the CPU, native library built);
+# the port's proof must equal it.
+
+POSEIDON_TRANSCRIPT_GOLDEN_SEED = 1
+POSEIDON_TRANSCRIPT_GOLDEN_SHA256 = "d9306ead02536de048ce02998a479e8ae5295ed4e39ce4c5e17867a21aadb6c6"
+POSEIDON_TRANSCRIPT_GOLDEN_LEN = 1792
+
+# tests/test_poseidon.py::test_poseidon_circuit_satisfied: (domain, in0,
+# in1) per permutation; the other five blocks of k=9 hash the zero state
+POSEIDON_GOLDEN_EVENTS = ((0, 123, 456), (2 << 64, 7, 8))
+# tests/test_mpt_circuit.py::_updates: trie pre-state (key, value), then
+# the witnessed writes (a value update at depth 2, an insert into the
+# empty slot at depth 1, an update of that key)
+MPT_GOLDEN_PRESTATE = ((0b00, 5), (0b10, 6))
+MPT_GOLDEN_WRITES = ((0b00, 55), (1, 77), (1, 88))
+# tests/test_pi_circuit.py::_pd: chain id, prev_state_root, and the
+# messages whose keccak digests are the other three roots
+PI_GOLDEN_CHAIN_ID = 534352
+PI_GOLDEN_PREV_ROOT = bytes(range(32))
+PI_GOLDEN_DIGESTS_OF = (b"post", b"withdraw", b"data")
+
+# name: (k, sha256, proof length)
+CHAIN_GOLDENS = {
+    "poseidon": (9, "3d4f122a8bd061d839e7323258e8f5c3bf531fa0286b3f78b41f7a44687bb68a", 1600),
+    "mpt": (7, "450f9290807f26dd336dc8488637525ecf32997b508643477e3251944d135d09", 4160),
+    "pi": (9, "54adb68a37de00ac85117a17ff30fc5dbef4e21126dac7ffd3a06db79110cba7", 8992),
+}
+
+
+def chain_modules() -> dict:
+    """This package's modules that chain_golden builds from."""
+    from ..circuits import mpt, pi, poseidon
+    from ..crypto import keccak
+    from ..witness import mpt as mpt_witness
+
+    return dict(poseidon=poseidon, mpt=mpt, pi=pi, keccak=keccak,
+                mpt_witness=mpt_witness)
+
+
+def chain_golden(name: str, m: dict | None = None):
+    """(circuit, instances) of golden `name` (a key of CHAIN_GOLDENS),
+    built from the modules `m` (default: chain_modules(); another
+    package's modules of the same names build the same witness there)."""
+    m = m or chain_modules()
+    if name == "poseidon":
+        ev = m["poseidon"].PoseidonEvent
+        return m["poseidon"].PoseidonCircuit(
+            [ev(domain=d, in0=a, in1=b) for d, a, b in POSEIDON_GOLDEN_EVENTS]), []
+    if name == "mpt":
+        ups = m["mpt_witness"].MptUpdates()
+        for key, value in MPT_GOLDEN_PRESTATE:
+            ups.trie.update(key, value)
+        for key, value in MPT_GOLDEN_WRITES:
+            ups.write(key, value)
+        return m["mpt"].MptCircuit(ups.updates), []
+    if name == "pi":
+        post, withdraw, data = (m["keccak"].keccak256(s) for s in PI_GOLDEN_DIGESTS_OF)
+        pd = m["pi"].PublicData(
+            chain_id=PI_GOLDEN_CHAIN_ID, prev_state_root=PI_GOLDEN_PREV_ROOT,
+            post_state_root=post, withdraw_root=withdraw, data_hash=data)
+        return m["pi"].PiCircuit(pd), [pd.instance()]
+    raise KeyError(name)

@@ -25,7 +25,7 @@ from ..device import resolve
 from ..poly.domain import domain
 from ..poly.kzg import Query, Srs, eval_batch, shplonk_open
 from ..poly.ntt import coset_intt, coset_ntt, intt
-from ..poly.transcript import Blake2bTranscript
+from ..poly.transcript import Blake2bTranscript, PoseidonTranscript
 from .circuit import Circuit, ConstraintSystem, usable_rows
 from .expression import Evaluator, PreRolledEvaluator
 from .keygen import ProvingKey
@@ -171,7 +171,7 @@ def prove(
     circuit: Circuit,
     instances: list[list[int]],
     srs: Srs,
-    transcript: Blake2bTranscript | None = None,
+    transcript: Blake2bTranscript | PoseidonTranscript | None = None,
     rng: np.random.Generator | None = None,
     device=None,
     timings: dict | None = None,

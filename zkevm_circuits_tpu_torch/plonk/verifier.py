@@ -39,7 +39,9 @@ def _eval_expr(e, getq, ch):
 
 def verify(vk: VerifyingKey, instances: list[list[int]], proof: bytes,
            transcript=None) -> bool:
-    """`transcript`: optional reader instance (default Blake2bReader)."""
+    """`transcript`: optional reader instance (default Blake2bReader);
+    pass poly.transcript.PoseidonReader(proof) to verify proofs made with
+    PoseidonTranscript."""
     cs = vk.cs
     k, n = vk.k, vk.n
     u = usable_rows(n)

@@ -26,6 +26,13 @@ seeded EcMul and seeded EcAdds (`ecc_workload`), the ModExp circuit over
 seeded 256-bit events (`modexp_workload`) and the SHA-256 circuit over
 seeded messages (`sha256_workload`), each but Sig filling at least
 PRECOMPILE_FILL of the usable rows of 2^k.
+
+`mpt_prove_bench(which, k, workload)` proves one of the two MPT circuits
+of a seeded two-level state transition (`mpt_workload`: the
+storage-subtrie circuit, filling at least MPT_FILL of the usable rows of
+2^k, or the account-trie circuit), and `poseidon_prove_bench(k, events)` the Poseidon
+circuit over every block of 2^k, both under the Poseidon transcript, the
+production prover's transcript for inner proofs.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ from ..circuits.ecc import EcAddEvent, EccCircuit, EcMulEvent
 from ..circuits.evm import EvmCircuit, EvmParams
 from ..circuits.exp import ExpCircuit
 from ..circuits.modexp import ModExpCircuit, ModExpEvent, modexp_steps
+from ..circuits.mpt import MptCircuit
+from ..circuits.poseidon import PoseidonCircuit
 from ..circuits.sha256 import ROWS_PER_BLOCK, Sha256Circuit
 from ..circuits.sig import EV_ROWS as SIG_EV_ROWS
 from ..circuits.sig import SigCircuit, SigEvent
@@ -57,11 +66,13 @@ from ..plonk.keygen import keygen
 from ..plonk.prover import prove
 from ..plonk.verifier import verify
 from ..poly.kzg import Srs
+from ..poly.transcript import PoseidonReader, PoseidonTranscript
 from ..tracer import Account, Interpreter, StateDB, Tx
 from ..types import Bytecode
 from ..types.evm import OpcodeId
 from ..witness.builder import AccountState, CircuitInputBuilder
-from ..witness.rw import Rw, RwTag
+from ..witness.mpt import AccountFields, two_level_updates_from_rws
+from ..witness.rw import AccountField, Rw, RwTag
 
 
 def synthetic_rw_workload(n_rows: int) -> list[Rw]:
@@ -310,9 +321,10 @@ def evm_workload(seed: int, k: int):
     return b, stats
 
 
-def _prove_verify(make_circuit, k: int, dev) -> dict:
+def _prove_verify(make_circuit, k: int, dev, poseidon: bool = False) -> dict:
     """SRS, keygen, prove and verify of make_circuit() at degree `k` on
-    `dev`, each timed (the device synchronised after the SRS).
+    `dev`, each timed (the device synchronised after the SRS); under the
+    Poseidon transcript when `poseidon`, else Blake2b.
 
     Returns {"k", "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
     "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
@@ -328,10 +340,12 @@ def _prove_verify(make_circuit, k: int, dev) -> dict:
     prove_phases: dict = {}
     t0 = time.perf_counter()
     proof = prove(pk, make_circuit(), [], srs, rng=np.random.default_rng(7),
-                  device=dev, timings=prove_phases)
+                  device=dev, timings=prove_phases,
+                  transcript=PoseidonTranscript() if poseidon else None)
     prove_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ok = verify(vk, [], proof)
+    ok = verify(vk, [], proof,
+                transcript=PoseidonReader(proof) if poseidon else None)
     verify_s = time.perf_counter() - t0
     return {
         "k": k, "srs_s": srs_s, "keygen_s": keygen_s,
@@ -683,3 +697,129 @@ def precompile_prove_bench(name: str, k: int = 13, seed: int = 7, device=None,
     log(f"[{name}_bench k={k}] workload {stats}")
     return {**_prove_verify(lambda: circuit, k, resolve(device)),
             "workload": stats}
+
+
+# ---------------------------------------------------------------------------
+# the Poseidon chain: MPT circuits of a two-level state transition, and
+# the Poseidon circuit, at full width
+MPT_FILL = 0.9  # the least share of the usable rows the storage circuit fills
+MPT_ACCOUNTS = 4  # accounts writing storage; one more only receives value
+
+
+def _mpt_usage(c: MptCircuit) -> tuple[int, int]:
+    """(path rows, rows of its own Poseidon table) of a standalone MPT
+    circuit: one row per path node, one table row per permutation."""
+    rows = sum(u.depth + 1 for u in c.updates)
+    return rows, len(c.poseidon_events())
+
+
+def _mpt_rws(seed: int, n_slots: int):
+    """Storage and Account RW rows of a seeded block: MPT_ACCOUNTS accounts
+    writing n_slots slots between them (round-robin), about half of them
+    committed before the block; a final word is 0 for one slot in ten
+    (a delete of a committed slot, or a read of an empty one); each
+    account bumps its nonce and pays into one fresh account.  Returns
+    (rws, accounts_before)."""
+    rng = np.random.default_rng(seed)
+    word = lambda: int.from_bytes(rng.bytes(32), "big")  # noqa: E731
+    addrs = [int.from_bytes(rng.bytes(20), "big") for _ in range(MPT_ACCOUNTS)]
+    fresh = int.from_bytes(rng.bytes(20), "big")
+    before = {a: AccountFields(nonce=int(rng.integers(0, 1 << 16)),
+                               code_size=int(rng.integers(1, 24577)),
+                               balance=word() >> 128, code_hash=word())
+              for a in addrs}
+    rws, ctr = [], 0
+
+    def push(**kw):
+        nonlocal ctr
+        ctr += 1
+        rws.append(Rw(rw_counter=ctr, is_write=True, id=1, **kw))
+
+    for i in range(n_slots):
+        committed = word() if rng.random() < 0.5 else 0
+        final = 0 if rng.random() < 0.1 else word()
+        push(tag=RwTag.Storage, address=addrs[i % MPT_ACCOUNTS],
+             storage_key=word(), value=final, value_prev=committed)
+    paid = 0
+    for a in addrs:
+        f, v = before[a], int(rng.integers(1, 1 << 40))
+        push(tag=RwTag.Account, address=a, field_tag=int(AccountField.Nonce),
+             value=f.nonce + 1, value_prev=f.nonce)
+        push(tag=RwTag.Account, address=a,
+             field_tag=int(AccountField.Balance), value=f.balance - v,
+             value_prev=f.balance)
+        push(tag=RwTag.Account, address=fresh,
+             field_tag=int(AccountField.Balance), value=paid + v,
+             value_prev=paid)
+        paid += v
+    return rws, before
+
+
+def _mpt_circuits(seed: int, n_slots: int):
+    storage, groups, accounts, _ = two_level_updates_from_rws(
+        *_mpt_rws(seed, n_slots))
+    stor = MptCircuit(storage=storage, two_level=True,
+                      chain_groups=[g[1] for g in groups])
+    return stor, MptCircuit(accounts=accounts)
+
+
+def mpt_workload(seed: int, k: int):
+    """The two MPT circuits of a seeded two-level state transition
+    (`_mpt_rws` -> two_level_updates_from_rws), built as the SuperCircuit
+    builds them: the storage-subtrie circuit (two_level=True, one root
+    chain per account) and the account-trie circuit, each standalone with
+    its own Poseidon table.  Slots are added until the storage circuit
+    fills at least MPT_FILL of the usable rows of 2^k: its Poseidon table
+    (about two rows per path row: each path hashes its old and new side)
+    is the longer of its two regions, so it sets the fill.  Returns
+    (storage_circuit, account_circuit, stats); the stats carry the host
+    seconds as "workload_s"."""
+    t0 = time.perf_counter()
+    cap = usable_rows(1 << k)
+    n_slots = max(8, cap // 28)  # a first guess below the fill: ~20 rows a slot
+    while True:
+        stor, acct = _mpt_circuits(seed, n_slots)
+        used = max(_mpt_usage(stor))
+        if used > cap:
+            n_slots -= (used - cap) // 20 + 1
+        elif used < MPT_FILL * cap:
+            n_slots += int(MPT_FILL * cap - used) // 30 + 1
+        else:
+            break
+    rows, table = _mpt_usage(stor)
+    a_rows, a_table = _mpt_usage(acct)
+    stats = {"slots": n_slots, "storage_updates": len(stor.updates),
+             "accounts": len(acct.updates), "path_rows": rows,
+             "poseidon_rows": table, "account_path_rows": a_rows,
+             "account_poseidon_rows": a_table, "usable_rows": cap,
+             "fill": max(rows, table) / cap,
+             "max_depth": max(u.depth for u in stor.updates),
+             "splits": sum(u.is_split for u in stor.updates),
+             "absences": sum(u.new_empty for u in stor.updates),
+             "workload_s": time.perf_counter() - t0}
+    return stor, acct, stats
+
+
+def mpt_prove_bench(which: str, k: int, workload, device=None) -> dict:
+    """SRS, keygen, prove (Poseidon transcript) and verify (PoseidonReader)
+    at degree `k` of the "storage" or "account" circuit of `workload` (an
+    mpt_workload result, built once for both).
+
+    Returns {"k", "workload", "srs_s", "keygen_s", "prove_s", "verify_s",
+    "ok", "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
+    stor, acct, stats = workload
+    circuit = {"storage": stor, "account": acct}[which]
+    return {**_prove_verify(lambda: circuit, k, resolve(device), poseidon=True),
+            "workload": stats}
+
+
+def poseidon_prove_bench(k: int, events, device=None) -> dict:
+    """SRS, keygen, prove (Poseidon transcript) and verify (PoseidonReader)
+    of the Poseidon circuit over the first events that fill every block
+    of 2^k (all of them if fewer)."""
+    c = PoseidonCircuit([])
+    blocks = c.n_blocks(1 << k)
+    c.events = list(events[:blocks])
+    r = _prove_verify(lambda: c, k, resolve(device), poseidon=True)
+    return {**r, "workload": {"events": len(c.events), "blocks": blocks,
+                              "fill": len(c.events) / blocks}}

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Make or check one of the Poseidon chain's goldens (plonk/demo.py) on the
-CPU, or count the shapes of the chain's circuits.
+"""Make or check one of the Poseidon chain's or the SuperCircuit's goldens
+(plonk/demo.py) on the CPU, or count the shapes of their circuits.
 
     JAX_PLATFORMS=cpu python chain_goldens.py jax NAME   # the reference's proof
     python chain_goldens.py port NAME                    # the port's proof
     python chain_goldens.py shapes                       # the port's circuits
 
 NAME is demo_poseidon (the k=5 DemoCircuit under the Poseidon transcript),
-poseidon, mpt or pi.  `jax` proves the golden's witness with the JAX
-package, the reference, and prints the lines PERF.md quotes as the
-golden's origin: keygen seconds, prove seconds, "RESULT k sha256 bytes",
-and the verifier's verdict with the total seconds.  Run it from the
-repository root (its DemoCircuit is tests/test_plonk_prove.py's); the
-JAX package's native library (`make -C native`) makes it faster.  `port`
-proves the same witness with the port on the CPU and prints the same
-lines and whether the proof equals the golden.  Each takes minutes (PI
-the longest).  `shapes` prints each circuit's advice columns and phases,
-fixed columns, gate polynomials, logUp inputs and quotient degree: the
-goldens' and those of service/bench_circuits.mpt_workload at k=9.
+poseidon, mpt, pi or super (the k=9 SuperCircuit over
+tests/test_super_circuit.py::_witness()).  `jax` proves the golden's
+witness with the JAX package, the reference, and prints the lines PERF.md
+quotes as the golden's origin: keygen seconds, prove seconds, "RESULT k
+sha256 bytes", and the verifier's verdict with the total seconds.  Run it
+from the repository root (its DemoCircuit is tests/test_plonk_prove.py's);
+the JAX package's native library (`make -C native`) makes it faster.
+`port` proves the same witness with the port on the CPU and prints the
+same lines and whether the proof equals the golden.  Each takes minutes
+(PI the longest of the chain; super, 605 advice columns, the better part
+of an hour from the JAX package and hours from the port).  `shapes`
+prints each circuit's advice columns and phases, fixed columns, gate
+polynomials, logUp inputs and quotient degree: the goldens', those of
+service/bench_circuits.mpt_workload at k=9, and those of
+service/bench_circuits.super_workload at k=9 and 13 (chip_smoke.py's
+super_k13 witness), with its regions' fill.
 """
 
 import hashlib
@@ -30,7 +35,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 
-NAMES = ("demo_poseidon", "poseidon", "mpt", "pi")
+NAMES = ("demo_poseidon", "poseidon", "mpt", "pi", "super")
 
 
 def _jax():
@@ -52,17 +57,22 @@ def _jax():
     threading.Thread(target=clear, daemon=True).start()
     from test_plonk_prove import DemoCircuit
 
-    from zkevm_circuits_tpu.circuits import mpt, pi, poseidon
+    from zkevm_circuits_tpu import tracer, types
+    from zkevm_circuits_tpu.circuits import mpt, pi, poseidon, super_circuit
     from zkevm_circuits_tpu.crypto import keccak
     from zkevm_circuits_tpu.plonk.keygen import keygen
     from zkevm_circuits_tpu.plonk.prover import prove
     from zkevm_circuits_tpu.plonk.verifier import verify
     from zkevm_circuits_tpu.poly import transcript
     from zkevm_circuits_tpu.poly.kzg import Srs
+    from zkevm_circuits_tpu.types import transaction
+    from zkevm_circuits_tpu.witness import builder
     from zkevm_circuits_tpu.witness import mpt as mpt_witness
 
     modules = dict(poseidon=poseidon, mpt=mpt, pi=pi, keccak=keccak,
-                   mpt_witness=mpt_witness)
+                   mpt_witness=mpt_witness, types=types,
+                   transaction=transaction, tracer=tracer, builder=builder,
+                   super_circuit=super_circuit)
     return (DemoCircuit, modules, Srs.unsafe_setup, keygen, prove, verify,
             transcript, {})
 
@@ -78,7 +88,8 @@ def _port():
     from zkevm_circuits_tpu_torch.poly import transcript
     from zkevm_circuits_tpu_torch.poly.kzg import Srs
 
-    return (demo.DemoCircuit, demo.chain_modules(), Srs.unsafe_setup, keygen,
+    return (demo.DemoCircuit, {**demo.chain_modules(), **demo.super_modules()},
+            Srs.unsafe_setup, keygen,
             prove, verify, transcript, {"device": "cpu"})
 
 
@@ -94,6 +105,10 @@ def prove_golden(side: str, name: str) -> bool:
         sha = demo.POSEIDON_TRANSCRIPT_GOLDEN_SHA256
         make, inst = Demo, [[demo.A_IN]]
         kw, reader = {"transcript": tr.PoseidonTranscript()}, tr.PoseidonReader
+    elif name == "super":
+        k, sha = demo.SUPER_GOLDEN_K, demo.SUPER_GOLDEN_SHA256
+        tau, seed = demo.PARTNER_GOLDEN_TAU, demo.PARTNER_GOLDEN_SEED
+        make, inst = lambda: demo.super_golden(modules), []  # noqa: E731
     else:
         k, sha, _ = demo.CHAIN_GOLDENS[name]
         tau, seed = demo.PARTNER_GOLDEN_TAU, demo.PARTNER_GOLDEN_SEED
@@ -119,17 +134,27 @@ def prove_golden(side: str, name: str) -> bool:
 
 def shapes():
     from zkevm_circuits_tpu_torch.circuits.poseidon import PoseidonCircuit
+    from zkevm_circuits_tpu_torch.circuits.super_circuit import SuperCircuit
     from zkevm_circuits_tpu_torch.plonk import demo
     from zkevm_circuits_tpu_torch.plonk.circuit import ConstraintSystem
     from zkevm_circuits_tpu_torch.plonk.keygen import quotient_degree
-    from zkevm_circuits_tpu_torch.service.bench_circuits import mpt_workload
+    from zkevm_circuits_tpu_torch.service.bench_circuits import (
+        mpt_workload, super_workload)
 
-    stor, acct, _ = mpt_workload(20261016, 9)  # chip_smoke.SEED
-    for name, c in (("poseidon", PoseidonCircuit([])),
-                    ("mpt", demo.chain_golden("mpt")[0]),
-                    ("pi", demo.chain_golden("pi")[0]),
-                    ("mpt_workload storage", stor),
-                    ("mpt_workload account", acct)):
+    seed = 20261016  # chip_smoke.SEED
+    stor, acct, _ = mpt_workload(seed, 9)
+    circuits = [("poseidon", PoseidonCircuit([])),
+                ("mpt", demo.chain_golden("mpt")[0]),
+                ("pi", demo.chain_golden("pi")[0]),
+                ("mpt_workload storage", stor),
+                ("mpt_workload account", acct),
+                ("super", demo.super_golden())]
+    for k in (9, 13):
+        b, codes, txs, params, stats = super_workload(seed, k)
+        print(f"super_workload k={k}: {stats}")
+        circuits.append((f"super_workload k={k}",
+                         SuperCircuit(b, codes, txs, params)))
+    for name, c in circuits:
         cs = ConstraintSystem()
         c.configure(cs)
         print(f"{name}: advice {cs.num_advice} (phases "

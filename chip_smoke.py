@@ -12,11 +12,11 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. fourteen paths, each with the launch counts set to 0 just before it
+  3. sixteen paths, each with the launch counts set to 0 just before it
      and read, with the path's seconds, just after it; the run fails if a
      kernel the path names was not launched on it (K4 on the two mesh
      paths, every other kernel, both forms of K5 included, on all
-     fourteen):
+     sixteen):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -77,6 +77,22 @@ Phases, one line each (the process exits non-zero on any failure):
                         verify, per-phase seconds, resident and peak
                         memory; the batched permutation on the card against
                         the host one, byte for byte;
+     super_k9     the SuperCircuit's golden at k=9 (State, EVM, Bytecode,
+                  Tx and RLP over one signed transaction, plonk/demo.py):
+                  its sha256 equals the reference's proof, it verifies,
+                  and a flipped carry cell of the ADD step (gate-only) is
+                  rejected;
+     super_k13    the chunk prover (service.prover.ChunkProver) at
+                  k=SUPER_K = 13, full width, over seeded signed
+                  transactions whose contracts also run CALLDATACOPY,
+                  EXP, MULMOD/ADDMOD and SHA3 (State, EVM, Bytecode, Tx,
+                  RLP, Copy, Exp, MulMod and Keccak on; the fullest region
+                  >= 85% of its rows; service.bench_circuits.
+                  super_prove_bench): SRS, keys, gen_chunk_proof under the
+                  Poseidon transcript, verify_chunk_proof, per-phase
+                  seconds, resident and peak memory, the fill of every
+                  region; a second gen_chunk_proof of the same witness
+                  comes from the proof cache, equal and with no launch;
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -1079,6 +1095,69 @@ def prove_poseidon_mpt_full(dev, log, gpu: str) -> list:
     return fails
 
 
+def prove_super_k9(dev, log) -> list:
+    """The SuperCircuit's golden at k=9 (plonk/demo.py: the witness of
+    tests/test_super_circuit.py::_witness(), State, EVM, Bytecode, Tx and
+    RLP composed over one signed transaction): its sha256 equals the
+    reference's proof, it verifies, and the ADD step's first carry cell
+    flipped (tests/test_evm_circuit.py::test_evm_circuit_catches_wrong_sum:
+    on the CPU the MockProver finds only the gates 'ADD byte 0/1' failing)
+    is rejected."""
+    from zkevm_circuits_tpu_torch.circuits.super_circuit import SuperCircuit
+    from zkevm_circuits_tpu_torch.plonk import demo
+
+    b, codes, txs = demo.super_witness()
+    row = next(i for i, s in enumerate(SuperCircuit(b, codes, txs).evm.steps)
+               if s.exec_state == "ADD")
+    flip = lambda c: _tamper(  # noqa: E731
+        SuperCircuit, lambda s: s.evm.c_carry[0], [row],
+        lambda v: 1 - (v != 0))(b, codes, txs)
+    golden = {"super": (demo.SUPER_GOLDEN_K, demo.SUPER_GOLDEN_SHA256,
+                        demo.SUPER_GOLDEN_LEN)}
+    return _prove_goldens(dev, log, "super_k9", golden,
+                          lambda name: demo.super_golden(),
+                          {"super": ("carry_flip", flip)})
+
+
+SUPER_K = 13
+
+
+def prove_super_full(dev, log, gpu: str) -> list:
+    """The chunk prover at k=SUPER_K = 13 (the reference's degree for its
+    full composition, tests/test_super_circuit.py:157), full width, over
+    service.bench_circuits.super_workload: seeded signed transactions of
+    looping contracts that also run CALLDATACOPY, EXP, MULMOD/ADDMOD and
+    a SHA3, so State, EVM, Bytecode, Tx, RLP, Copy, Exp, MulMod and Keccak
+    are all on, the fullest region at SUPER_FILL or more of its rows.
+    Through ChunkProver (super_prove_bench): SRS, keys, gen_chunk_proof
+    under the Poseidon transcript, verify_chunk_proof; then
+    gen_chunk_proof again on the same witness, which must come from the
+    proof cache with equal bytes and no kernel launch.  Logs the shapes,
+    the fill of every region, per-phase seconds, resident and peak
+    memory."""
+    from zkevm_circuits_tpu_torch.service.bench_circuits import (
+        SUPER_FILL, super_prove_bench)
+
+    r = super_prove_bench(SUPER_K, seed=SEED, device=dev, log=lambda m: None)
+    w, k, hit = r["workload"], r["k"], r["cached"]
+    log(f"[super k={k}] card={gpu!r} workload={json.dumps(w)}")
+    log(f"[super k={k}] shapes={json.dumps(r['shapes'])} k_ext={r['k_ext']}")
+    log(f"[super k={k}] card={gpu!r} srs {r['srs_s']:.2f} s keygen "
+        f"{r['keygen_s']:.2f} s prove {r['prove_s']:.2f} s verify "
+        f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
+        f"resident_gb={r['resident_gb']:.2f} peak_mem_gb={r['peak_gb']:.2f}")
+    log(f"[super k={k}] prove phases (s, card={gpu!r}): "
+        f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
+    log(f"[super k={k}] second gen_chunk_proof: {hit['s']:.3f} s "
+        f"equal={hit['equal']} launches={hit['launches']}")
+    fails = [] if r["ok"] else [f"super k={k} chunk proof did not verify"]
+    if not hit["equal"] or hit["launches"]:
+        fails.append(f"super k={k}: the second gen_chunk_proof was no cache hit")
+    if max(w["fill"].values()) < SUPER_FILL:
+        fails.append(f"super k={k} workload filled {w['fill']}")
+    return fails
+
+
 KERNELS = [
     ("K1", "mont_mul", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:178"),
@@ -1152,6 +1231,9 @@ def main() -> int:
     drive_path("poseidon_k9", lambda: prove_poseidon_k9(dev, log), single)
     drive_path("poseidon_mpt_full",
                lambda: prove_poseidon_mpt_full(dev, log, gpu), single)
+    drive_path("super_k9", lambda: prove_super_k9(dev, log), single)
+    drive_path(f"super_k{SUPER_K}", lambda: prove_super_full(dev, log, gpu),
+               single)
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:

@@ -6,8 +6,9 @@ count, and the k=5 demo, k=9 Keccak and k=9 EVM golden proofs on the
 card, the golden proofs of the EVM's table partners (MulMod, Exp,
 Bytecode, Tx, Copy, RLP), of the precompile circuits (SHA-256, ModExp,
 ECC) and of the Poseidon chain (the demo under the Poseidon transcript,
-Poseidon, MPT, PI) on the card, and the batched Poseidon permutation on
-the card against the host one.
+Poseidon, MPT, PI) and of the SuperCircuit on the card, the chunk
+prover at k=9 on the card (it verifies; a second call is a cache hit),
+and the batched Poseidon permutation on the card against the host one.
 
 They skip without a card.  This file imports no JAX (the card's machine
 has none); run it there with
@@ -413,3 +414,42 @@ def test_chain_proof_on_card_matches_golden(dev, name):
     assert len(proof) == length
     assert hashlib.sha256(proof).hexdigest() == sha
     assert verify(vk, inst, proof)
+
+
+def test_super_k9_proof_on_card_matches_golden(dev):
+    """The SuperCircuit's golden (plonk/demo.py::super_golden)."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+
+    k = demo.SUPER_GOLDEN_K
+    srs = Srs.unsafe_setup(k, tau=demo.PARTNER_GOLDEN_TAU)
+    pk, vk = keygen(demo.super_golden(), k, srs)
+    proof = prove(pk, demo.super_golden(), [], srs,
+                  rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED))
+    assert len(proof) == demo.SUPER_GOLDEN_LEN
+    assert hashlib.sha256(proof).hexdigest() == demo.SUPER_GOLDEN_SHA256
+    assert verify(vk, [], proof)
+
+
+def test_chunk_prover_on_card(dev, tmp_path):
+    """ChunkProver at k=9 over the golden's witness: the chunk proof
+    (Poseidon transcript) verifies, and a second gen_chunk_proof of the
+    same witness comes from the cache with equal bytes and no launch."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.service.prover import ChunkProver
+
+    b, codes, txs = demo.super_witness()
+    cp = ChunkProver(str(tmp_path / "params"), str(tmp_path / "out"), k=9)
+    proof = cp.gen_chunk_proof(b, codes, txs)
+    assert proof.k == 9 and proof.instances == []
+    assert cp.verify_chunk_proof(proof)
+    before = dict(cf.LAUNCHES)
+    again = cp.gen_chunk_proof(b, codes, txs)
+    assert again.proof == proof.proof and cf.LAUNCHES == before
+    # the SRS file loads back onto the card
+    srs = ChunkProver(str(tmp_path / "params"), k=9).srs()
+    assert srs.device.type == "cuda"
+    assert torch.equal(srs.g1_powers.x, cp.srs().g1_powers.x)

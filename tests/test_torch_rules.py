@@ -3,8 +3,9 @@ zkevm_circuits_tpu_torch/, chip_smoke.py or msm_state_timing.py imports
 JAX or the JAX package, or loads the JAX tree's native library; every
 module imports without a card or a compiler; the kernel build directory
 is git-ignored; each kernel source names the TPU kernel it replaces.  The
-EVM circuit's subpackages (types, tracer, witness, circuits) and the
-Poseidon chain's (crypto, trie, witness, circuits) are held to the same
+EVM circuit's subpackages (types, tracer, witness, circuits), the
+Poseidon chain's (crypto, trie, witness, circuits) and the chunk
+prover's (circuits/super_circuit, service, utils) are held to the same
 rules."""
 
 import ast
@@ -32,7 +33,7 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 SUBPACKAGES = ("circuits", "crypto", "ops", "parallel", "plonk", "poly",
-               "service", "tracer", "trie", "types", "witness")
+               "service", "tracer", "trie", "types", "utils", "witness")
 
 
 def test_rules_cover_every_subpackage():
@@ -51,9 +52,11 @@ PIPELINE = {
     "witness": ("trace", "builder", "test_ctx", "block", "rw", "mpt", "l2"),
     "circuits": ("evm", "block", "state", "keccak", "mulmod", "exp",
                  "bytecode", "rlp", "tx", "copy", "sha256", "ecblocks", "ecc",
-                 "modexp", "sig", "poseidon", "mpt", "pi"),
+                 "modexp", "sig", "poseidon", "mpt", "pi", "super_circuit"),
     "crypto": ("keccak", "secp256k1", "sha256", "poseidon"),
     "trie": ("__init__", "zktrie"),
+    "service": ("__init__", "prover", "bench_circuits"),
+    "utils": ("__init__", "stats"),
 }
 
 

@@ -18,7 +18,7 @@ import torch
 from ..device import resolve
 from ..ops import cuda_curve
 from .field import fq
-from .params import FQ_MODULUS
+from .params import FQ_MODULUS, G1_GEN  # noqa: F401  (the reference names G1_GEN here too)
 
 
 class G1(NamedTuple):

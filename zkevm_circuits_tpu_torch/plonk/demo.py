@@ -403,3 +403,70 @@ def chain_golden(name: str, m: dict | None = None):
             post_state_root=post, withdraw_root=withdraw, data_hash=data)
         return m["pi"].PiCircuit(pd), [pd.instance()]
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# the SuperCircuit's golden: tests/test_super_circuit.py::_witness(), one
+# transaction signed with SUPER_GOLDEN_SK on chain SUPER_GOLDEN_CHAIN_ID to
+# SUPER_GOLDEN_CONTRACT running PUSH1 5, PUSH2 0x1234, ADD, POP, STOP
+# (code hash carried, so the bytecode binding is live), composed by
+# SuperCircuit(b, [code], txs) with the default SuperParams and proved at
+# k=9 with Srs.unsafe_setup(9, tau=PARTNER_GOLDEN_TAU), no instances,
+# rng=np.random.default_rng(PARTNER_GOLDEN_SEED) and the Blake2b
+# transcript.  SUPER_GOLDEN_SHA256 and SUPER_GOLDEN_LEN are the sha256 and
+# length of the reference's proof (the JAX package on the CPU, native
+# library built); the port's proof must equal it.
+
+SUPER_GOLDEN_K = 9
+SUPER_GOLDEN_CONTRACT = 0xC0DE
+SUPER_GOLDEN_SK = int("33" * 32, 16)
+SUPER_GOLDEN_CHAIN_ID = 1337
+SUPER_GOLDEN_CODE = bytes.fromhex("600561123401" "5000")
+SUPER_GOLDEN_SHA256 = "f5fb97b4143e361f44afbbc5d8b4a1c0cb86759d0f21b3e8c9d208d27a1e1dbc"
+SUPER_GOLDEN_LEN = 175136
+
+
+def super_modules() -> dict:
+    """This package's modules that super_witness builds from."""
+    from .. import tracer, types
+    from ..circuits import super_circuit
+    from ..crypto import keccak
+    from ..types import transaction
+    from ..witness import builder
+
+    return dict(types=types, transaction=transaction, tracer=tracer,
+                builder=builder, keccak=keccak, super_circuit=super_circuit)
+
+
+def super_witness(m: dict | None = None):
+    """(builder, [code], txs) of tests/test_super_circuit.py::_witness():
+    one signed transaction to SUPER_GOLDEN_CONTRACT running
+    SUPER_GOLDEN_CODE with the code hash carried, built from the modules
+    `m` (default: super_modules(); another package's modules of the same
+    names build the same witness there)."""
+    m = m or super_modules()
+    tr_ = m["tracer"]
+    code = m["types"].Bytecode(SUPER_GOLDEN_CODE)
+    tx = m["transaction"].Transaction(
+        nonce=0, to=SUPER_GOLDEN_CONTRACT,
+        chain_id=SUPER_GOLDEN_CHAIN_ID).sign(SUPER_GOLDEN_SK)
+    sender = tx.recover_sender()
+    state = tr_.StateDB({sender: tr_.Account(balance=10**18),
+                         SUPER_GOLDEN_CONTRACT: tr_.Account(code=code.to_bytes())})
+    trace = tr_.Interpreter(state).run_tx(
+        tr_.Tx(from_addr=sender, to=SUPER_GOLDEN_CONTRACT))
+    assert not trace.failed
+    b = m["builder"].CircuitInputBuilder()
+    b.handle_tx(dict(from_addr=sender, to_addr=SUPER_GOLDEN_CONTRACT, value=0,
+                     calldata=b"",
+                     code_hash=int.from_bytes(
+                         m["keccak"].keccak256(code.to_bytes()), "big")), trace)
+    return b, [code], [tx]
+
+
+def super_golden(m: dict | None = None):
+    """The golden's SuperCircuit, built from the modules `m` (default:
+    super_modules())."""
+    m = m or super_modules()
+    b, codes, txs = super_witness(m)
+    return m["super_circuit"].SuperCircuit(b, codes, txs)

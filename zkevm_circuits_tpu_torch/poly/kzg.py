@@ -24,6 +24,7 @@ from ..crypto.curve import (
     g1_to_affine_ints,
     host_g1_add,
     host_g1_mul,
+    host_msm,
 )
 from ..crypto.field import fq, fr
 from ..crypto.params import FQ_MODULUS, FR_MODULUS, G1_GEN
@@ -337,7 +338,10 @@ def shplonk_verify(srs_g2, queries: list[VerifierQuery], transcript) -> bool:
     w1 = transcript.read_point()
     u = transcript.squeeze_challenge()
 
-    acc = None
+    # C_L = sum_j scal_j [C_j] - const [1] - W1, as one host MSM (the
+    # same point as a double-and-add a commitment, in a fraction of the
+    # time: the queries number in the thousands for the SuperCircuit)
+    comms, scals = [], []
     const_scalar = 0
     c = 0
     for pts in gorder:
@@ -353,11 +357,12 @@ def shplonk_verify(srs_g2, queries: list[VerifierQuery], transcript) -> bool:
             r_coeffs = lagrange_interpolate(pts_l, [evals[p] for p in pts_l])
             r_u = host_eval_poly(r_coeffs, u)
             scal = w * zinv % R
-            acc = host_g1_add(acc, host_g1_mul(qs[0].commitment, scal))
+            comms.append(qs[0].commitment)
+            scals.append(scal)
             const_scalar = (const_scalar + scal * r_u) % R
 
-    acc = host_g1_add(acc, host_g1_mul(G1_GEN, (R - const_scalar) % R))
-    acc = host_g1_add(acc, host_g1_mul(w1, R - 1))  # - W1
+    acc = host_msm(comms + [G1_GEN, w1],
+                   scals + [(R - const_scalar) % R, R - 1])  # ... - W1
 
     w2 = transcript.read_point()
     lhs_pt = host_g1_add(host_g1_mul(w2, u), acc)

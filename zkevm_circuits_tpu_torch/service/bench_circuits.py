@@ -33,11 +33,19 @@ storage-subtrie circuit, filling at least MPT_FILL of the usable rows of
 2^k, or the account-trie circuit), and `poseidon_prove_bench(k, events)` the Poseidon
 circuit over every block of 2^k, both under the Poseidon transcript, the
 production prover's transcript for inner proofs.
+
+`super_prove_bench(k, seed)` proves a chunk through the production
+prover, service/prover.py's ChunkProver: the SuperCircuit over seeded
+signed transactions of looping contracts that also run CALLDATACOPY,
+EXP, MULMOD/ADDMOD and SHA3 (`super_workload`), the fullest of its
+regions (`super_rows`) filling at least SUPER_FILL of its rows.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -48,21 +56,25 @@ from ..circuits.copy import CopyCircuit
 from ..circuits.ecc import EV_ROWS as ECC_EV_ROWS
 from ..circuits.ecc import EcAddEvent, EccCircuit, EcMulEvent
 from ..circuits.evm import EvmCircuit, EvmParams
-from ..circuits.exp import ExpCircuit
+from ..circuits.exp import ExpCircuit, ExpParams
+from ..circuits.keccak import ROWS_PER_PERM, Z_PER_ROW
 from ..circuits.modexp import ModExpCircuit, ModExpEvent, modexp_steps
 from ..circuits.mpt import MptCircuit
 from ..circuits.poseidon import PoseidonCircuit
+from ..circuits.rlp import RlpCircuit
 from ..circuits.sha256 import ROWS_PER_BLOCK, Sha256Circuit
 from ..circuits.sig import EV_ROWS as SIG_EV_ROWS
 from ..circuits.sig import SigCircuit, SigEvent
 from ..circuits.state import StateCircuit, StateParams
+from ..circuits.super_circuit import SuperCircuit, SuperParams
+from ..circuits.tx import FIXED_TAGS, TxParams
 from ..crypto import secp256k1
 from ..crypto.curve import host_g1_add, host_g1_mul
 from ..crypto.keccak import keccak256
 from ..crypto.params import FQ_MODULUS, FR_MODULUS, G1_GEN
 from ..device import resolve
-from ..plonk.circuit import usable_rows
-from ..plonk.keygen import keygen
+from ..plonk.circuit import ConstraintSystem, usable_rows
+from ..plonk.keygen import keygen, quotient_degree
 from ..plonk.prover import prove
 from ..plonk.verifier import verify
 from ..poly.kzg import Srs
@@ -70,9 +82,12 @@ from ..poly.transcript import PoseidonReader, PoseidonTranscript
 from ..tracer import Account, Interpreter, StateDB, Tx
 from ..types import Bytecode
 from ..types.evm import OpcodeId
+from ..types.transaction import Transaction
+from ..utils.stats import circuit_stats
 from ..witness.builder import AccountState, CircuitInputBuilder
 from ..witness.mpt import AccountFields, two_level_updates_from_rws
 from ..witness.rw import AccountField, Rw, RwTag
+from .prover import ChunkProver
 
 
 def synthetic_rw_workload(n_rows: int) -> list[Rw]:
@@ -198,12 +213,20 @@ def evm_witness(code: bytes, sender: int, contract: int, calldata: bytes = b"",
 
 
 def evm_loop_program(rng: np.random.Generator, iters: int,
-                     n_snippets: int) -> Bytecode:
+                     n_snippets: int, partners: bool = False,
+                     sha3: bool = False) -> Bytecode:
     """A contract that runs a seeded body of `n_snippets` snippets
     `iters` times: PUSH2 iters, JUMPDEST, body, counter - 1, DUP1,
     PUSH2 loop, JUMPI, POP, STOP.  The body leaves the stack as it found
     it and never touches the counter beneath it; memory offsets stay
-    below 512 and storage keys below 8."""
+    below 512 and storage keys below 8.
+
+    `partners` adds snippets whose opcodes read another circuit's table:
+    CALLDATACOPY (the Copy circuit), EXP with a one- or two-byte exponent
+    (Exp), MULMOD and ADDMOD (MulMod).  `sha3` adds, after the loop, a
+    SHA3 of up to 32 bytes of memory (Keccak).  With both False the rng
+    draws, and so the program, are those of the standalone EVM
+    workload."""
     bc = Bytecode().push(2, iters)
     loop = len(bc.code)
     bc.op("JUMPDEST")
@@ -267,7 +290,33 @@ def evm_loop_program(rng: np.random.Generator, iters: int,
         else:  # not taken
             bc.push(1, 0).push(2, int(rng.integers(1 << 16))).op("JUMPI")
 
+    def calldatacopy():
+        nonlocal depth
+        push_small(33)  # length
+        push_small(72)  # calldata offset, some past its end
+        push_small(448)  # memory offset
+        bc.op("CALLDATACOPY")
+        depth -= 3
+
+    def exp():
+        nonlocal depth
+        nb = int(rng.choice([1, 2]))
+        bc.push(nb, int.from_bytes(rng.bytes(nb), "big"))  # exponent
+        depth += 1
+        push_word()  # base
+        bc.op("EXP")
+        depth -= 1
+
+    def mulmod():
+        nonlocal depth
+        ensure(2)
+        push_word()  # modulus
+        bc.op(("MULMOD", "ADDMOD")[int(rng.integers(2))])
+        depth -= 2
+
     kinds = [value_op] * 10 + [dup_swap] * 3 + [memory] * 3 + [storage] * 2 + [jump]
+    if partners:
+        kinds += [calldatacopy, exp, mulmod]
     for _ in range(n_snippets):
         kinds[int(rng.integers(len(kinds)))]()
         while depth > EVM_MAX_DEPTH:
@@ -276,8 +325,11 @@ def evm_loop_program(rng: np.random.Generator, iters: int,
     for _ in range(depth):
         bc.op("POP")
     bc.push(1, 1).op("SWAP1").op("SUB")  # counter - 1
-    bc.op("DUP1").push(2, loop).op("JUMPI")
-    return bc.op("POP").op("STOP")
+    bc.op("DUP1").push(2, loop).op("JUMPI").op("POP")
+    if sha3:
+        bc.push(1, int(rng.integers(1, 33))).push(2, int(rng.integers(0, 448)))
+        bc.op("SHA3").op("POP")
+    return bc.op("STOP")
 
 
 def evm_workload(seed: int, k: int):
@@ -823,3 +875,189 @@ def poseidon_prove_bench(k: int, events, device=None) -> dict:
     r = _prove_verify(lambda: c, k, resolve(device), poseidon=True)
     return {**r, "workload": {"events": len(c.events), "blocks": blocks,
                               "fill": len(c.events) / blocks}}
+
+
+# ---------------------------------------------------------------------------
+# the SuperCircuit's chunk: the production prover's workload
+SUPER_FILL = 0.85  # the least share of its rows the fullest region fills
+SUPER_CHAIN_ID = 1337
+SUPER_CALLDATA = 55  # calldata bytes a transaction carries at most (the
+#                      RLP circuit walks short-form strings only)
+SUPER_GAS = 3_000_000
+
+
+def super_params(txs) -> SuperParams:
+    """The chunk's SuperParams: the EVM steps and the Exp rows uncapped
+    (usable rows, exact step count), the Tx circuit sized to `txs`, the
+    others at their defaults."""
+    return SuperParams(
+        evm=EvmParams(target_steps=0), exp=ExpParams(target_rows=0),
+        tx=TxParams(max_txs=len(txs),
+                    max_calldata=sum(len(tx.data) for tx in txs)))
+
+
+def super_rows(b: CircuitInputBuilder, codes, txs, k: int) -> dict:
+    """{region: (rows used, rows it may use)} of the SuperCircuit over
+    the witness (b, codes, txs) under super_params(txs) at degree `k`,
+    each counted as that sub-circuit's own fit check counts it.  Keccak
+    is on when the builder hashed anything with SHA3; it then hashes every
+    code, each transaction's sign payload and signed envelope, and the
+    SHA3 inputs, 200 rows a permutation."""
+    cap = usable_rows(1 << k)
+    keccak = bool(b.sha3_inputs)
+    pad = (lambda n: 136 - n % 136) if keccak else (lambda n: 0)
+    rows = {
+        "state": (len(b.rws.rws), cap - 8),
+        "evm": (len(b.steps), cap),
+        "bytecode": (sum(1 + len(c) + pad(len(c)) for c in codes), cap),
+        "tx": (len(txs) * len(FIXED_TAGS) + sum(len(tx.data) for tx in txs), cap),
+        "rlp": (len(RlpCircuit(txs).rows) if txs else 0, cap),
+        "copy": (sum(ev.length for ev in b.copy_events), cap),
+        "exp": (sum(len(ev.steps) for ev in b.exp_events), cap),
+        "mulmod": (len(b.mulmod_events) + 1 if b.mulmod_events else 0, cap),
+    }
+    if keccak:
+        msgs = [c.to_bytes() for c in codes]
+        msgs += [tx.sign_payload() for tx in txs] + [tx.rlp_signed() for tx in txs]
+        msgs += list(b.sha3_inputs)
+        perms = sum(len(m) // 136 + 1 for m in msgs)
+        rows["keccak"] = (perms * ROWS_PER_PERM, cap - 64 // Z_PER_ROW)
+    return rows
+
+
+def super_workload(seed: int, k: int):
+    """Seeded signed transactions, each from its own seeded key with
+    seeded calldata of up to SUPER_CALLDATA bytes and a seeded value,
+    each calling a fresh looping contract (evm_loop_program with the
+    CALLDATACOPY, EXP and MULMOD/ADDMOD snippets, and the SHA3 after the
+    loop) with its code hash carried, until the fullest region of the
+    SuperCircuit (super_rows) reaches SUPER_FILL of its rows.  A
+    transaction that would overflow a region is drawn again without the
+    SHA3, then with half the iterations and snippets, at most 8 times.
+
+    Returns (builder, bytecodes, txs, params, stats); stats has the
+    transactions, steps, RW rows, usable rows, and each region's rows and
+    fill."""
+    rng = np.random.default_rng(seed)
+    state = StateDB({})
+    b = CircuitInputBuilder(accounts={})
+    codes: list = []
+    txs: list = []
+
+    def fullest(rows):
+        return max(used / room for used, room in rows.values())
+
+    while not txs or fullest(super_rows(b, codes, txs, k)) < SUPER_FILL:
+        addr = EVM_CONTRACT_BASE + len(txs)
+        sk = int.from_bytes(rng.bytes(32), "big") % (secp256k1.N - 1) + 1
+        calldata = rng.bytes(int(rng.integers(0, SUPER_CALLDATA + 1)))
+        value = int(rng.integers(0, 1000))
+        tx = Transaction(nonce=0, gas=SUPER_GAS, to=addr, value=value,
+                         data=calldata, chain_id=SUPER_CHAIN_ID).sign(sk)
+        sender = tx.recover_sender()
+        iters, snippets = int(rng.integers(8, 24)), int(rng.integers(16, 48))
+        for _ in range(8):
+            fits = False
+            for sha3 in (True, False):
+                code = evm_loop_program(rng, iters, snippets, partners=True,
+                                        sha3=sha3)
+                raw = code.to_bytes()
+                code_hash = int.from_bytes(keccak256(raw), "big")
+                st, bb = copy.deepcopy(state), copy.deepcopy(b)
+                st.accounts[sender] = Account(balance=10**18)
+                st.accounts[addr] = Account(code=raw)
+                bb.accounts[sender] = AccountState(balance=10**18)
+                bb.accounts[addr] = AccountState(code_hash=code_hash)
+                tr = Interpreter(st).run_tx(Tx(from_addr=sender, to=addr,
+                                               gas=SUPER_GAS, value=value,
+                                               data=calldata))
+                assert not tr.failed, "workload transaction failed"
+                bb.handle_tx(dict(from_addr=sender, to_addr=addr, value=value,
+                                  calldata=calldata, code_hash=code_hash),
+                             tr, code_db={addr: raw})
+                rows = super_rows(bb, codes + [code], txs + [tx], k)
+                if all(used <= room for used, room in rows.values()):
+                    fits = True
+                    break
+            if fits:
+                break
+            iters, snippets = max(1, iters // 2), max(1, snippets // 2)
+        else:
+            break
+        state, b = st, bb
+        codes.append(code)
+        txs.append(tx)
+    rows = super_rows(b, codes, txs, k)
+    stats = {
+        "txs": len(txs), "steps": len(b.steps), "rw_rows": len(b.rws.rws),
+        "usable_rows": usable_rows(1 << k),
+        "rows": {name: used for name, (used, _) in rows.items()},
+        "fill": {name: used / room for name, (used, room) in rows.items()},
+        "sha3": len(b.sha3_inputs), "copy_events": len(b.copy_events),
+        "exp_events": len(b.exp_events), "mulmod_events": len(b.mulmod_events),
+    }
+    stats["fullest"] = max(stats["fill"], key=stats["fill"].get)
+    return b, codes, txs, super_params(txs), stats
+
+
+def super_prove_bench(k: int = 13, seed: int = 7, device=None, log=print) -> dict:
+    """The chunk prover over super_workload(seed, k): ChunkProver's SRS,
+    keys, gen_chunk_proof (Poseidon transcript) and verify_chunk_proof,
+    each timed, then gen_chunk_proof again on the same witness, which
+    must come from the prover's proof cache.  The prover's params_dir
+    and output_dir are in a temporary directory.
+
+    Returns {"k", "k_ext", "workload", "shapes" (circuit_stats and the
+    quotient degree), "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
+    "proof_bytes", "proof", "prove_phases", "cached" ({"s", "equal",
+    "launches"}: the second call's seconds, whether its proof equals the
+    first's, the kernel launches it made), "resident_gb", "peak_gb" (the
+    device memory allocated before the SRS, and the peak; None on the
+    CPU)}."""
+    from ..ops import cuda_field
+
+    dev = resolve(device)
+    cuda = dev.type == "cuda"
+
+    def now():
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    b, codes, txs, params, stats = super_workload(seed, k)
+    stats["workload_s"] = time.perf_counter() - t0
+    log(f"[super_bench k={k}] workload {stats}")
+    cs = ConstraintSystem()
+    SuperCircuit(b, codes, txs, params).configure(cs)
+    shapes = {**circuit_stats(cs), "quotient_degree": quotient_degree(cs)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev) / 2**30 if cuda else None
+    with tempfile.TemporaryDirectory() as tmp:
+        cp = ChunkProver(os.path.join(tmp, "params"), os.path.join(tmp, "out"),
+                         params=params, k=k, device=dev)
+        t0 = now()
+        cp.srs()
+        t1 = now()
+        pk, _ = cp.keys(SuperCircuit(b, codes, txs, params))
+        t2 = now()
+        prove_phases: dict = {}
+        proof = cp.gen_chunk_proof(b, codes, txs, timings=prove_phases)
+        t3 = now()
+        ok = cp.verify_chunk_proof(proof)
+        t4 = now()
+        before = sum(cuda_field.LAUNCHES.values())
+        again = cp.gen_chunk_proof(b, codes, txs)
+        t5 = now()
+        launches = sum(cuda_field.LAUNCHES.values()) - before
+    return {
+        "k": k, "k_ext": pk.k_ext, "workload": stats, "shapes": shapes,
+        "srs_s": t1 - t0, "keygen_s": t2 - t1, "prove_s": t3 - t2,
+        "verify_s": t4 - t3, "ok": bool(ok), "proof_bytes": len(proof.proof),
+        "proof": proof.proof, "prove_phases": prove_phases,
+        "cached": {"s": t5 - t4, "equal": again.proof == proof.proof,
+                   "launches": launches},
+        "resident_gb": resident,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
+    }

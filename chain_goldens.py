@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Make or check one of the Poseidon chain's or the SuperCircuit's goldens
-(plonk/demo.py) on the CPU, or count the shapes of their circuits.
+"""Make or check one of the Poseidon chain's, the SuperCircuit's or the
+recursion layer's goldens (plonk/demo.py) on the CPU, or count the shapes
+of their circuits.
 
     JAX_PLATFORMS=cpu python chain_goldens.py jax NAME   # the reference's proof
     python chain_goldens.py port NAME                    # the port's proof
     python chain_goldens.py shapes                       # the port's circuits
 
 NAME is demo_poseidon (the k=5 DemoCircuit under the Poseidon transcript),
-poseidon, mpt, pi or super (the k=9 SuperCircuit over
-tests/test_super_circuit.py::_witness()).  `jax` proves the golden's
+poseidon, mpt, pi, super (the k=9 SuperCircuit over
+tests/test_super_circuit.py::_witness()), compression (the k=10
+CompressionCircuit over a k=5 DemoCircuit proof made under the Poseidon
+transcript) or batch_hash (the k=10 BatchHashCircuit over three chunks).  `jax` proves the golden's
 witness with the JAX package, the reference, and prints the lines PERF.md
 quotes as the golden's origin: keygen seconds, prove seconds, "RESULT k
 sha256 bytes", and the verifier's verdict with the total seconds.  Run it
@@ -35,7 +38,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 
-NAMES = ("demo_poseidon", "poseidon", "mpt", "pi", "super")
+NAMES = ("demo_poseidon", "poseidon", "mpt", "pi", "super", "compression",
+         "batch_hash")
 
 
 def _jax():
@@ -65,6 +69,7 @@ def _jax():
     from zkevm_circuits_tpu.plonk.verifier import verify
     from zkevm_circuits_tpu.poly import transcript
     from zkevm_circuits_tpu.poly.kzg import Srs
+    from zkevm_circuits_tpu.recursion import aggregation, batch_hash, compression
     from zkevm_circuits_tpu.types import transaction
     from zkevm_circuits_tpu.witness import builder
     from zkevm_circuits_tpu.witness import mpt as mpt_witness
@@ -72,7 +77,8 @@ def _jax():
     modules = dict(poseidon=poseidon, mpt=mpt, pi=pi, keccak=keccak,
                    mpt_witness=mpt_witness, types=types,
                    transaction=transaction, tracer=tracer, builder=builder,
-                   super_circuit=super_circuit)
+                   super_circuit=super_circuit, aggregation=aggregation,
+                   batch_hash=batch_hash, compression=compression)
     return (DemoCircuit, modules, Srs.unsafe_setup, keygen, prove, verify,
             transcript, {})
 
@@ -88,7 +94,8 @@ def _port():
     from zkevm_circuits_tpu_torch.poly import transcript
     from zkevm_circuits_tpu_torch.poly.kzg import Srs
 
-    return (demo.DemoCircuit, {**demo.chain_modules(), **demo.super_modules()},
+    return (demo.DemoCircuit, {**demo.chain_modules(), **demo.super_modules(),
+                               **demo.recursion_modules()},
             Srs.unsafe_setup, keygen,
             prove, verify, transcript, {"device": "cpu"})
 
@@ -109,6 +116,21 @@ def prove_golden(side: str, name: str) -> bool:
         k, sha = demo.SUPER_GOLDEN_K, demo.SUPER_GOLDEN_SHA256
         tau, seed = demo.PARTNER_GOLDEN_TAU, demo.PARTNER_GOLDEN_SEED
         make, inst = lambda: demo.super_golden(modules), []  # noqa: E731
+    elif name in demo.RECURSION_GOLDENS:
+        k, sha, _ = demo.RECURSION_GOLDENS[name]
+        inner = None
+        if name == "compression":
+            tau, seed = demo.COMPRESSION_TAU, demo.COMPRESSION_SEED
+            srs_i = setup(demo.K, tau=demo.GOLDEN_TAU, **dev)
+            pk_i, vk_i = keygen(Demo(), demo.K, srs_i, **dev)
+            inner = (vk_i, prove(
+                pk_i, Demo(), [[demo.A_IN]], srs_i, transcript=tr.PoseidonTranscript(),
+                rng=np.random.default_rng(demo.COMPRESSION_INNER_SEED), **dev))
+            print(name, "inner proof", time.time() - t0, flush=True)
+        else:
+            tau, seed = demo.PARTNER_GOLDEN_TAU, demo.PARTNER_GOLDEN_SEED
+        circuit, inst = demo.recursion_golden(name, modules, inner)
+        make = lambda: circuit  # noqa: E731
     else:
         k, sha, _ = demo.CHAIN_GOLDENS[name]
         tau, seed = demo.PARTNER_GOLDEN_TAU, demo.PARTNER_GOLDEN_SEED

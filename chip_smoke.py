@@ -12,11 +12,11 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. sixteen paths, each with the launch counts set to 0 just before it
+  3. eighteen paths, each with the launch counts set to 0 just before it
      and read, with the path's seconds, just after it; the run fails if a
      kernel the path names was not launched on it (K4 on the two mesh
      paths, every other kernel, both forms of K5 included, on all
-     sixteen):
+     eighteen):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -25,7 +25,7 @@ Phases, one line each (the process exits non-zero on any failure):
                  state bit is rejected;
      state_k16   the State circuit at DEGREE=16 (service.bench_circuits):
                  SRS, keygen, prove, verify, with per-phase seconds;
-     keccak_k15  the Keccak circuit at k=KECCAK_K = 15 (the reference's
+     keccak_k14  the Keccak circuit at k=KECCAK_K = 14 (the reference's
                  DEGREE=16, cut for the script's time), full width (Z=8,
                  658 advice columns), every permutation that fits, of
                  seeded messages: SRS, keygen, prove, verify, per-phase
@@ -93,6 +93,29 @@ Phases, one line each (the process exits non-zero on any failure):
                   seconds, resident and peak memory, the fill of every
                   region; a second gen_chunk_proof of the same witness
                   comes from the proof cache, equal and with no launch;
+     recursion_k10    the recursion layer's goldens (plonk/demo.py): the
+                      k=5 demo under the Poseidon transcript compressed by
+                      CompressionCircuit at k=10 (its sha256 equals the
+                      reference's proof; it verifies; finish_deferred
+                      accepts it and rejects the inner proof with byte 7
+                      flipped), the stdlib-only verifier artifact of its
+                      vk run by evm_verify in a subprocess (accepts; a
+                      flipped proof byte and a wrong instance rejected),
+                      the BatchHashCircuit golden over three chunks at
+                      k=10 (equal, verified, a bent RLC accumulator
+                      rejected), and BatchHashCircuit at full width,
+                      MAX_AGG_SNARKS = 15 chunks, at k=13: SRS, keygen,
+                      prove, verify;
+     recursion_chunk  the production layer 1 over super_k13's chunk
+                      proof: service.prover.LayerProver (device None, the
+                      card).gen_compression_proof, its tape's rows, min_k
+                      and k_ext, keygen and prove phases, resident and
+                      peak memory; verify_compression_proof, then
+                      finish_deferred against the chunk's vk; a changed
+                      exposed instance value rejected; BatchProver.
+                      gen_batch's batch hash; a second
+                      gen_compression_proof from the proof cache, equal
+                      and with no launch;
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -630,9 +653,10 @@ def keccak_messages(seed: int, max_perms: int) -> list[bytes]:
     return msgs
 
 
-# The Keccak path's degree: the reference's DEGREE=16, cut to 15 after a
-# whole-script run passed 1,000 s of the 1,200 s limit (PERF.md, section 6).
-KECCAK_K = 15
+# The Keccak path's degree: the reference's DEGREE=16, cut to 15 and then to
+# 14, each time after a whole-script run passed 1,000 s of the 1,200 s limit
+# (PERF.md, section 6).
+KECCAK_K = 14
 
 
 def prove_keccak_full(dev, log, gpu: str) -> list:
@@ -774,20 +798,20 @@ def prove_evm_k14(dev, log, gpu: str) -> list:
     return fails
 
 
-def _tamper(circuit_cls, column, rows, new):
-    """`circuit_cls` with its phase-0 advice column column(circuit) set to
-    new(value) on each row of `rows` (values as plain ints).  Each use
-    below changes a cell that only gates read: no lookup fails, so the
-    prover makes a proof, and the verifier must reject it."""
+def _tamper(circuit_cls, column, rows, new, phase: int = 0):
+    """`circuit_cls` with its advice column column(circuit) of phase
+    `phase` set to new(value) on each row of `rows` (values as plain
+    ints).  Each use below changes a cell that only gates read: no lookup
+    fails, so the prover makes a proof, and the verifier must reject it."""
     from zkevm_circuits_tpu_torch.crypto.field import fr
 
     F = fr()
     r_inv = pow(F.R, -1, F.modulus)
 
     class Corrupt(circuit_cls):
-        def synthesize(self, phase, n, challenges, instances):
-            cols = super().synthesize(phase, n, challenges, instances)
-            if phase == 0:
+        def synthesize(self, phase_, n, challenges, instances):
+            cols = super().synthesize(phase_, n, challenges, instances)
+            if phase_ == phase:
                 c = column(self)
                 arr = np.array(cols[c])
                 for row in rows:
@@ -1122,7 +1146,7 @@ def prove_super_k9(dev, log) -> list:
 SUPER_K = 13
 
 
-def prove_super_full(dev, log, gpu: str) -> list:
+def prove_super_full(dev, log, gpu: str, chunk: dict) -> list:
     """The chunk prover at k=SUPER_K = 13 (the reference's degree for its
     full composition, tests/test_super_circuit.py:157), full width, over
     service.bench_circuits.super_workload: seeded signed transactions of
@@ -1134,11 +1158,13 @@ def prove_super_full(dev, log, gpu: str) -> list:
     gen_chunk_proof again on the same witness, which must come from the
     proof cache with equal bytes and no kernel launch.  Logs the shapes,
     the fill of every region, per-phase seconds, resident and peak
-    memory."""
+    memory.  The chunk proof, its vk and instances go into `chunk` for
+    recursion_chunk."""
     from zkevm_circuits_tpu_torch.service.bench_circuits import (
         SUPER_FILL, super_prove_bench)
 
     r = super_prove_bench(SUPER_K, seed=SEED, device=dev, log=lambda m: None)
+    chunk.update(vk=r["vk"], proof=r["proof"], instances=r["instances"])
     w, k, hit = r["workload"], r["k"], r["cached"]
     log(f"[super k={k}] card={gpu!r} workload={json.dumps(w)}")
     log(f"[super k={k}] shapes={json.dumps(r['shapes'])} k_ext={r['k_ext']}")
@@ -1155,6 +1181,222 @@ def prove_super_full(dev, log, gpu: str) -> list:
         fails.append(f"super k={k}: the second gen_chunk_proof was no cache hit")
     if max(w["fill"].values()) < SUPER_FILL:
         fails.append(f"super k={k} workload filled {w['fill']}")
+    return fails
+
+
+def _flip(data: bytes, at: int) -> bytes:
+    bad = bytearray(data)
+    bad[at] ^= 1
+    return bytes(bad)
+
+
+def prove_recursion_k10(dev, log, gpu: str) -> list:
+    """The recursion layer's goldens and small statements (plonk/demo.py).
+    The compression golden: the k=5 DemoCircuit proved under the Poseidon
+    transcript, then CompressionCircuit over it (the inner proof's whole
+    scalar verification on a tape) proved at its min_k = 10 with the
+    Blake2b transcript: its sha256 equals the reference's proof, it
+    verifies, finish_deferred accepts its deferred MSM and pairing, and
+    the same circuit over the inner proof with byte 7 flipped is rejected
+    by finish_deferred (tests/test_compression.py).  gen_verifier_artifact
+    writes a stdlib-only verifier for the compression's vk, and evm_verify
+    (a clean subprocess) accepts the card's proof and rejects a flipped
+    proof byte and a wrong instance (tests/test_evm_verifier.py).  The
+    BatchHashCircuit golden over three chunks at k=10 equals the
+    reference's proof and verifies; its phase-1 RLC accumulator bent on
+    row 5 (only the gate 'bh acc step' reads it there) is rejected.  Then
+    BatchHashCircuit at full width, MAX_AGG_SNARKS chunks, at its own k:
+    SRS, keygen, prove, verify."""
+    import os
+    import re
+    import tempfile
+
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.circuit import usable_rows
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.poly.transcript import (
+        PoseidonReader, PoseidonTranscript)
+    from zkevm_circuits_tpu_torch.recursion.aggregation import MAX_AGG_SNARKS
+    from zkevm_circuits_tpu_torch.recursion.batch_hash import BatchHashCircuit
+    from zkevm_circuits_tpu_torch.recursion.compression import (
+        CompressionCircuit, finish_deferred)
+    from zkevm_circuits_tpu_torch.recursion.evm_verifier import (
+        evm_verify, gen_verifier_artifact)
+
+    fails = []
+    t0 = time.perf_counter()
+    srs_i = Srs.unsafe_setup(demo.K, tau=demo.GOLDEN_TAU, device=dev)
+    pk_i, vk_i = keygen(demo.DemoCircuit(), demo.K, srs_i, device=dev)
+    inst_i = [[demo.A_IN]]
+    inner = prove(pk_i, demo.DemoCircuit(), inst_i, srs_i,
+                  transcript=PoseidonTranscript(), device=dev,
+                  rng=np.random.default_rng(demo.COMPRESSION_INNER_SEED))
+    inner_ok = verify(vk_i, inst_i, inner, transcript=PoseidonReader(inner))
+    t1 = time.perf_counter()
+    comp, inst = demo.recursion_golden("compression", inner=(vk_i, inner))
+    k, sha, length = demo.RECURSION_GOLDENS["compression"]
+    t2 = time.perf_counter()
+    srs = Srs.unsafe_setup(k, tau=demo.COMPRESSION_TAU, device=dev)
+    pk, vk = keygen(comp, k, srs, device=dev)
+    t3 = time.perf_counter()
+    proof = prove(pk, comp, inst, srs, device=dev,
+                  rng=np.random.default_rng(demo.COMPRESSION_SEED))
+    t4 = time.perf_counter()
+    digest = hashlib.sha256(proof).hexdigest()
+    golden = digest == sha and len(proof) == length
+    ok = verify(vk, inst, proof)
+    deferred = finish_deferred(vk_i, comp.claim, inst[0])
+    bad = CompressionCircuit(vk_i, _flip(inner, 7), inst_i)
+    bad_deferred = finish_deferred(vk_i, bad.claim, bad.instances()[0])
+    log(f"[recursion_k10] compression inner k={demo.K} (Poseidon transcript) "
+        f"{t1 - t0:.2f} s verify={inner_ok}; tape rows={len(comp.tape.ops)} "
+        f"sponge rows={len(comp.perm_rows)} instance={len(inst[0])} "
+        f"min_k={comp.min_k()} host {t2 - t1:.2f} s; setup+keygen "
+        f"{t3 - t2:.2f} s prove {t4 - t3:.2f} s proof_bytes={len(proof)} "
+        f"sha256={digest} golden={golden} verify={ok} finish_deferred={deferred} "
+        f"byte7_flipped_finish_deferred={bad_deferred}")
+    if comp.min_k() != k or not golden:
+        fails.append("recursion_k10: compression proof differs from the golden")
+    if not (inner_ok and ok and deferred) or bad_deferred:
+        fails.append("recursion_k10: compression verdicts wrong")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = gen_verifier_artifact(vk, os.path.join(tmp, "verifier_compression.py"))
+        with open(path) as f:
+            src = f.read()
+        mods = set(re.findall(r"^(?:import|from)\s+([\w.]+)", src, re.M))
+        t5 = time.perf_counter()
+        art = evm_verify(path, inst, proof)
+        art_flip = evm_verify(path, inst, _flip(proof, len(proof) // 3))
+        wrong = [[(inst[0][0] + 1) % (1 << 64)] + inst[0][1:]]
+        art_wrong = evm_verify(path, wrong, proof)
+        t6 = time.perf_counter()
+    log(f"[recursion_k10] verifier artifact bytes={len(src)} imports={sorted(mods)} "
+        f"evm_verify={art} flipped_byte={art_flip} wrong_instance={art_wrong} "
+        f"({t6 - t5:.2f} s, three subprocesses)")
+    if not mods <= {"hashlib", "json", "sys"} or not art or art_flip or art_wrong:
+        fails.append("recursion_k10: verifier artifact verdicts wrong")
+
+    bent = lambda c: _tamper(  # noqa: E731
+        type(c), lambda s: s.c_acc, [5], lambda v: v + 1, phase=1)(c.batch)
+    fails += _prove_goldens(
+        dev, log, "recursion_k10",
+        {"batch_hash": demo.RECURSION_GOLDENS["batch_hash"]},
+        lambda name: demo.recursion_golden(name)[0], {"batch_hash": ("acc_step", bent)},
+        instances=lambda name: demo.recursion_golden(name)[1])
+
+    t0 = time.perf_counter()
+    full = BatchHashCircuit(demo.mk_batch(demo.recursion_modules(), MAX_AGG_SNARKS))
+    kf = next(k_ for k_ in range(10, 20) if usable_rows(1 << k_) >= full.rows)
+    inst = [full.instance()]
+    srs = Srs.unsafe_setup(kf, tau=demo.PARTNER_GOLDEN_TAU, device=dev)
+    pk, vk = keygen(full, kf, srs, device=dev)
+    t1 = time.perf_counter()
+    phases: dict = {}
+    proof = prove(pk, full, inst, srs, device=dev, timings=phases,
+                  rng=np.random.default_rng(demo.PARTNER_GOLDEN_SEED))
+    t2 = time.perf_counter()
+    ok = verify(vk, inst, proof)
+    t3 = time.perf_counter()
+    log(f"[recursion_k10] batch_hash chunks={MAX_AGG_SNARKS} rows={full.rows} "
+        f"k={kf} card={gpu!r} setup+keygen {t1 - t0:.2f} s prove {t2 - t1:.2f} s "
+        f"verify {t3 - t2:.2f} s ok={ok} proof_bytes={len(proof)} prove phases "
+        f"{json.dumps({k_: round(v, 3) for k_, v in phases.items()})}")
+    if not ok:
+        fails.append(f"recursion_k10: the {MAX_AGG_SNARKS}-chunk batch hash "
+                     "proof did not verify")
+    return fails
+
+
+def prove_recursion_chunk(dev, log, gpu: str, chunk: dict) -> list:
+    """The production layer 1 over the real chunk proof: super_k13's
+    Poseidon-transcript proof compressed by the service's LayerProver
+    (device None: the card).  Logs the tape's rows, min_k, k_ext, the
+    compression circuit's stats, the host-witness, SRS, keygen and prove
+    seconds with the prove phases, resident and peak memory.  Then
+    verify_compression_proof accepts it, finish_deferred accepts the
+    deferred claim against the chunk's vk, and the proof with its last
+    exposed instance value (the SHPLONK point u) changed is rejected;
+    BatchProver.gen_batch folds the claim and returns the batch hash of
+    one chunk; a second gen_compression_proof of the same inner proof
+    comes from the proof cache, equal and with no kernel launch."""
+    import os
+    import tempfile
+
+    from zkevm_circuits_tpu_torch.crypto.params import FR_MODULUS
+    from zkevm_circuits_tpu_torch.ops import cuda_field
+    from zkevm_circuits_tpu_torch.plonk.keygen import quotient_degree
+    from zkevm_circuits_tpu_torch.recursion.aggregation import BatchHash, ChunkHash
+    from zkevm_circuits_tpu_torch.recursion.compression import finish_deferred
+    from zkevm_circuits_tpu_torch.service.prover import BatchProver, LayerProver, Proof
+    from zkevm_circuits_tpu_torch.utils.stats import circuit_stats
+
+    if "vk" not in chunk:
+        return ["recursion_chunk: super_k13 left no chunk proof"]
+    fails = []
+    vk_chunk = chunk["vk"]
+    inner = Proof(proof=chunk["proof"], instances=chunk["instances"], k=vk_chunk.k)
+    with tempfile.TemporaryDirectory() as tmp:
+        lp = LayerProver(os.path.join(tmp, "params"), os.path.join(tmp, "out"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev) / 2**30
+        tm: dict = {}
+        cproof, comp = lp.gen_compression_proof(vk_chunk, inner, timings=tm)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        key = f"layer1_k{cproof.k}"
+        pk_c, vk_c = lp._keys[key]
+        stats = {**circuit_stats(vk_c.cs), "quotient_degree": quotient_degree(vk_c.cs)}
+        log(f"[recursion_chunk] inner chunk k={vk_chunk.k} proof_bytes="
+            f"{len(inner.proof)}; tape rows={len(comp.tape.ops)} sponge rows="
+            f"{len(comp.perm_rows)} instance={len(cproof.instances[0])} "
+            f"msm_terms={len(comp.claim.msm)} min_k={cproof.k} k_ext={pk_c.k_ext}")
+        log(f"[recursion_chunk] shapes={json.dumps(stats)}")
+        log(f"[recursion_chunk] card={gpu!r} host witness {tm['circuit']:.2f} s "
+            f"srs {tm['srs']:.2f} s keygen {tm['keygen']:.2f} s prove "
+            f"{tm['prove']:.2f} s proof_bytes={len(cproof.proof)} "
+            f"resident_gb={resident:.2f} peak_mem_gb={peak:.2f}")
+        for phases in ("keygen_phases", "prove_phases"):
+            log(f"[recursion_chunk] {phases.replace('_', ' ')} (s, card={gpu!r}): "
+                f"{json.dumps({k_: round(v, 3) for k_, v in tm[phases].items()})}")
+        t0 = time.perf_counter()
+        ok = lp.verify_compression_proof(key, cproof)
+        t1 = time.perf_counter()
+        deferred = finish_deferred(vk_chunk, comp.claim, cproof.instances[0])
+        t2 = time.perf_counter()
+        bent = [list(cproof.instances[0])]
+        bent[0][-1] = (bent[0][-1] + 1) % FR_MODULUS
+        bent_ok = lp.verify_compression_proof(
+            key, Proof(proof=cproof.proof, instances=bent, k=cproof.k))
+        ch = ChunkHash(chain_id=1337,
+                       prev_state_root=int.from_bytes(b"\x01" * 32, "big"),
+                       post_state_root=int.from_bytes(b"\x02" * 32, "big"),
+                       withdraw_root=int.from_bytes(b"\x03" * 32, "big"),
+                       data_hash=int.from_bytes(bytes([7]) * 32, "big"))
+        t3 = time.perf_counter()
+        batch = BatchProver().gen_batch(
+            [(vk_chunk, comp.claim, cproof.instances[0])], [ch])
+        t4 = time.perf_counter()
+        batch_ok = batch["batch_pi_hash"] == hex(BatchHash([ch]).pi_hash())
+        before = sum(cuda_field.LAUNCHES.values())
+        t5 = time.perf_counter()
+        again, _ = lp.gen_compression_proof(vk_chunk, inner)
+        t6 = time.perf_counter()
+        launches = sum(cuda_field.LAUNCHES.values()) - before
+        equal = again.proof == cproof.proof and again.instances == cproof.instances
+    log(f"[recursion_chunk] verify_compression_proof={ok} ({t1 - t0:.2f} s) "
+        f"finish_deferred={deferred} ({t2 - t1:.2f} s) bent_u_verify={bent_ok} "
+        f"gen_batch {t4 - t3:.2f} s batch_pi_hash={batch['batch_pi_hash']} "
+        f"matches={batch_ok}")
+    log(f"[recursion_chunk] second gen_compression_proof: {t6 - t5:.3f} s "
+        f"equal={equal} launches={launches}")
+    if not (ok and deferred) or bent_ok:
+        fails.append("recursion_chunk: compression verdicts wrong")
+    if not batch_ok:
+        fails.append("recursion_chunk: gen_batch returned another batch hash")
+    if not equal or launches:
+        fails.append("recursion_chunk: the second gen_compression_proof was no cache hit")
     return fails
 
 
@@ -1232,8 +1474,13 @@ def main() -> int:
     drive_path("poseidon_mpt_full",
                lambda: prove_poseidon_mpt_full(dev, log, gpu), single)
     drive_path("super_k9", lambda: prove_super_k9(dev, log), single)
-    drive_path(f"super_k{SUPER_K}", lambda: prove_super_full(dev, log, gpu),
-               single)
+    chunk: dict = {}
+    drive_path(f"super_k{SUPER_K}",
+               lambda: prove_super_full(dev, log, gpu, chunk), single)
+    drive_path("recursion_k10", lambda: prove_recursion_k10(dev, log, gpu), single)
+    drive_path("recursion_chunk",
+               lambda: prove_recursion_chunk(dev, log, gpu, chunk), single)
+    chunk.clear()
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:

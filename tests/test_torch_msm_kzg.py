@@ -196,3 +196,14 @@ def test_shplonk_open_verify_round_trip(srs_pair):
            for q in vq]
     assert not tkzg.shplonk_verify((ts.g2, ts.s_g2), bad,
                                    ttr.Blake2bReader(bytes(tr.proof)))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 60])
+def test_lagrange_interpolate_matches_reference(m):
+    """The port's O(m^2) interpolation is the reference's O(m^3) one, coefficient
+    for coefficient (point sets reach hundreds: a column queried at that many
+    rotations)."""
+    rng = np.random.default_rng(m)
+    pts = [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS for _ in range(m)]
+    vals = [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS for _ in range(m)]
+    assert tkzg.lagrange_interpolate(pts, vals) == jkzg.lagrange_interpolate(pts, vals)

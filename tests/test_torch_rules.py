@@ -5,8 +5,8 @@ module imports without a card or a compiler; the kernel build directory
 is git-ignored; each kernel source names the TPU kernel it replaces.  The
 EVM circuit's subpackages (types, tracer, witness, circuits), the
 Poseidon chain's (crypto, trie, witness, circuits) and the chunk
-prover's (circuits/super_circuit, service, utils) are held to the same
-rules."""
+prover's (circuits/super_circuit, service, utils) and the recursion
+layer's (recursion) are held to the same rules."""
 
 import ast
 import importlib
@@ -33,7 +33,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 SUBPACKAGES = ("circuits", "crypto", "ops", "parallel", "plonk", "poly",
-               "service", "tracer", "trie", "types", "utils", "witness")
+               "recursion", "service", "tracer", "trie", "types", "utils",
+               "witness")
 
 
 def test_rules_cover_every_subpackage():
@@ -57,6 +58,9 @@ PIPELINE = {
     "trie": ("__init__", "zktrie"),
     "service": ("__init__", "prover", "bench_circuits"),
     "utils": ("__init__", "stats"),
+    "recursion": ("__init__", "tape", "compression", "aggregation", "ecmsm",
+                  "layer", "fold", "aggregation_snarks", "batch_hash",
+                  "evm_verifier", "pipeline"),
 }
 
 

@@ -470,3 +470,69 @@ def super_golden(m: dict | None = None):
     m = m or super_modules()
     b, codes, txs = super_witness(m)
     return m["super_circuit"].SuperCircuit(b, codes, txs)
+
+
+# ---------------------------------------------------------------------------
+# the recursion layer's goldens.  "compression" is the witness of
+# tests/test_compression.py::test_compression_real_prove: DemoCircuit at
+# k=5 proved with Srs.unsafe_setup(5, tau=GOLDEN_TAU), instance [[A_IN]],
+# the Poseidon transcript and rng=np.random.default_rng(
+# COMPRESSION_INNER_SEED); CompressionCircuit(vk, proof, [[A_IN]]) at its
+# min_k() proved with Srs.unsafe_setup(k, tau=COMPRESSION_TAU),
+# rng=np.random.default_rng(COMPRESSION_SEED) and the Blake2b transcript.
+# "batch_hash" is BatchHashCircuit over tests/test_batch_hash.py::
+# _mk_batch(3) at k=10, with [circuit.instance()], PARTNER_GOLDEN_TAU and
+# PARTNER_GOLDEN_SEED.  Each sha256 and length is the reference's proof
+# (the JAX package on the CPU, native library built); the port's proof
+# must equal it.
+
+COMPRESSION_INNER_SEED = 3
+COMPRESSION_TAU = 777
+COMPRESSION_SEED = 4
+BATCH_HASH_CHAIN_ID = 534352
+
+# name: (k, sha256, proof length)
+RECURSION_GOLDENS = {
+    "compression": (10, "c283df2b3c121d3e6e63da92aea2699721da145eafcafd1e31ea3b54922aa347", 2400),
+    "batch_hash": (10, "2fca72a2f48f3c941658f93ac743f4d3310c31e2e252b4c36c6130eeb16a0497", 15648),
+}
+
+
+def recursion_modules() -> dict:
+    """This package's modules that recursion_golden builds from."""
+    from ..crypto import keccak
+    from ..recursion import aggregation, batch_hash, compression
+
+    return dict(aggregation=aggregation, batch_hash=batch_hash,
+                compression=compression, keccak=keccak)
+
+
+def mk_batch(m: dict, n_chunks: int = 3, chain_id: int = BATCH_HASH_CHAIN_ID):
+    """tests/test_batch_hash.py::_mk_batch: a BatchHash of `n_chunks`
+    chained chunks with keccak-derived roots, built from the modules `m`."""
+    kk = m["keccak"].keccak256
+    agg = m["aggregation"]
+    roots = [int.from_bytes(kk(bytes([i])), "big") for i in range(n_chunks + 1)]
+    return agg.BatchHash([
+        agg.ChunkHash(
+            chain_id=chain_id, prev_state_root=roots[i],
+            post_state_root=roots[i + 1],
+            withdraw_root=int.from_bytes(kk(b"w%d" % i), "big"),
+            data_hash=int.from_bytes(kk(b"d%d" % i), "big"))
+        for i in range(n_chunks)
+    ])
+
+
+def recursion_golden(name: str, m: dict | None = None, inner=None):
+    """(circuit, instances) of golden `name` (a key of RECURSION_GOLDENS),
+    built from the modules `m` (default: recursion_modules()).  The
+    compression golden needs `inner` = (vk, proof) of its inner proof."""
+    m = m or recursion_modules()
+    if name == "compression":
+        vk, proof = inner
+        c = m["compression"].CompressionCircuit(vk, proof, [[A_IN]])
+        return c, c.instances()
+    if name == "batch_hash":
+        c = m["batch_hash"].BatchHashCircuit(mk_batch(m))
+        return c, [c.instance()]
+    raise KeyError(name)

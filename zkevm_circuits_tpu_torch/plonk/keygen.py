@@ -115,6 +115,40 @@ def _lagrange_indicators_ext(row_sets, k: int, k_ext: int, device):
     return _to_ext(coeffs, n, k_ext)
 
 
+def _copy_cycles(circuit: Circuit, cs: ConstraintSystem, n: int):
+    """The permutation's cycles as (cells, next): every cell of a copy
+    constraint as c * n + row (c its index in cs.perm_columns), each cycle
+    sorted by (c, row), and next[j] the cell after cells[j] in its cycle
+    (the first after the last), as halo2 and the reference lay them out.
+    The components come from label propagation with pointer jumping over
+    the copy edges, in numpy."""
+    col_index = {pc: i for i, pc in enumerate(cs.perm_columns)}
+    flat = [(col_index[(a.kind, a.col)] * n + a.row, col_index[(b.kind, b.col)] * n + b.row)
+            for a, b in circuit.copy_constraints(n)]
+    if not flat:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    ends = np.asarray(flat, np.int64)
+    cells, inv = np.unique(ends, return_inverse=True)
+    ea, eb = inv.reshape(-1, 2).T
+    lab = np.arange(len(cells))
+    while True:
+        lo = np.minimum(lab[ea], lab[eb])
+        new = lab.copy()
+        np.minimum.at(new, ea, lo)
+        np.minimum.at(new, eb, lo)
+        new = new[new]
+        if np.array_equal(new, lab):
+            break
+        lab = new
+    order = np.lexsort((cells, lab))
+    cells, lab = cells[order], lab[order]
+    first = np.flatnonzero(np.r_[True, lab[1:] != lab[:-1]])
+    nxt = np.roll(cells, -1)
+    last = np.r_[first[1:], len(cells)] - 1
+    nxt[last] = cells[first]
+    return cells, nxt
+
+
 def keygen(circuit: Circuit, k: int, srs: Srs, device=None, timings=None):
     """(pk, vk) for `circuit` at degree k.  `timings`, when a dict, gets
     the seconds of each keygen phase."""
@@ -147,48 +181,17 @@ def keygen(circuit: Circuit, k: int, srs: Srs, device=None, timings=None):
     # ---- permutation sigmas -------------------------------------------------
     perm_cols = cs.perm_columns
     npc = len(perm_cols)
-    col_index = {pc: i for i, pc in enumerate(perm_cols)}
-    parent: dict = {}
-
-    def find(a):
-        while parent.get(a, a) != a:
-            parent[a] = parent.get(parent[a], parent[a])
-            a = parent[a]
-        return a
-
-    def union(a, b):
-        ra, rb = find(a), find(b)
-        if ra != rb:
-            parent[ra] = rb
-
-    for ca, cb in circuit.copy_constraints(n):
-        a = (col_index[(ca.kind, ca.col)], ca.row)
-        b = (col_index[(cb.kind, cb.col)], cb.row)
-        union(a, b)
-
-    cycles: dict = {}
-    for cell in list(parent.keys()):
-        cycles.setdefault(find(cell), []).append(cell)
-    for root, members in cycles.items():
-        if root not in members:
-            members.append(root)
-
-    # identity labels on the device; only cycle members are patched
     delta_pows = [pow(DELTA, c, R) for c in range(max(npc, 1))]
     omega_pw = F.power_table(dom.omega, n, dev)
-    sig = F.mul(omega_pw[None],
-                torch.stack([F.scalar(d, dev) for d in delta_pows])[:, None])
-    patches = []
-    for members in cycles.values():
-        ms = sorted(set(members))
-        for j, (c, i) in enumerate(ms):
-            cn, inext = ms[(j + 1) % len(ms)]
-            patches.append((c, i, delta_pows[cn] * pow(dom.omega, inext, R) % R))
-    if patches:
-        ci = torch.as_tensor([p[0] for p in patches], device=dev)
-        ri = torch.as_tensor([p[1] for p in patches], device=dev)
-        sig[ci, ri] = torch.as_tensor(
-            F.from_ints([p[2] * F.R % R for p in patches]), device=dev)
+    ident = F.mul(omega_pw[None],
+                  torch.stack([F.scalar(d, dev) for d in delta_pows])[:, None])
+    sig = ident.clone()
+    cells, nxt = _copy_cycles(circuit, cs, n)
+    if len(cells):
+        # sigma at a cycle member is the identity label of the next one
+        src = torch.as_tensor(cells, device=dev)
+        dst = torch.as_tensor(nxt, device=dev)
+        sig[src // n, src % n] = ident[dst // n, dst % n]
     sigma_evals = sig
     sigma_coeffs = intt(sigma_evals, k)
     _mark("sigmas")

@@ -11,6 +11,8 @@ bytes are the reference's.
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 
 import numpy as np
 import torch
@@ -29,6 +31,7 @@ from ..crypto.curve import (
 from ..crypto.field import fq, fr
 from ..crypto.params import FQ_MODULUS, FR_MODULUS, G1_GEN
 from ..device import resolve
+from ..utils.stats import timer
 from .msm import msm_many
 from .ntt import coset_intt, coset_ntt
 
@@ -133,6 +136,27 @@ class Srs:
         return g1_to_affine_ints(self.commit_points(coeff_cols))
 
 
+def srs_file(path: str | None, k: int, device=None) -> Srs:
+    """The SRS of degree k kept in the file `path`: loaded from it, or set
+    up (Srs.unsafe_setup(k)) and stored there.  The file holds host arrays
+    (the G1 powers' digit planes and the G2 points), so it loads onto any
+    device.  With `path` None the SRS is only set up."""
+    if path and os.path.exists(path):
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        return Srs(k=d["k"], g2=d["g2"], s_g2=d["s_g2"],
+                   g1_powers=G1(*(torch.as_tensor(a, device=resolve(device))
+                                  for a in d["g1_powers"])))
+    with timer(f"SRS setup k={k}"):
+        srs = Srs.unsafe_setup(k, device=device)
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump({"k": srs.k, "g2": srs.g2, "s_g2": srs.s_g2,
+                         "g1_powers": [c.cpu().numpy() for c in srs.g1_powers]}, f)
+    return srs
+
+
 # ---------------------------------------------------------------------------
 # host-side scalar helpers (transcript-adjacent, tiny data)
 # ---------------------------------------------------------------------------
@@ -145,19 +169,27 @@ def host_eval_poly(coeffs_int: list[int], x: int) -> int:
 
 def lagrange_interpolate(points: list[int], values: list[int]) -> list[int]:
     """Coefficients of the unique poly of degree < len(points) through
-    (points[i], values[i]).  Host ints; point sets are tiny (<= 3)."""
+    (points[i], values[i]).  Host ints, O(m^2): Z(X) = prod (X - p_j) once,
+    each basis numerator Z(X) / (X - p_i) by synthetic division (a
+    circuit that queries a column at hundreds of rotations opens it at a
+    point set that large)."""
     m = len(points)
+    z = [1]
+    for p in points:
+        z = poly_mul_linear(z, (-p) % R)
     coeffs = [0] * m
-    for i in range(m):
-        num = [1]
+    for i, pi in enumerate(points):
+        num = [0] * m
+        carry = 0
+        for d in range(m, 0, -1):
+            carry = (z[d] + carry * pi) % R
+            num[d - 1] = carry
         denom = 1
-        for j in range(m):
-            if j == i:
-                continue
-            num = poly_mul_linear(num, (-points[j]) % R)
-            denom = denom * (points[i] - points[j]) % R
+        for j, pj in enumerate(points):
+            if j != i:
+                denom = denom * (pi - pj) % R
         scale = values[i] * pow(denom, -1, R) % R
-        for d in range(len(num)):
+        for d in range(m):
             coeffs[d] = (coeffs[d] + num[d] * scale) % R
     return coeffs
 

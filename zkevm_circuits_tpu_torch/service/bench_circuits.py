@@ -1009,7 +1009,8 @@ def super_prove_bench(k: int = 13, seed: int = 7, device=None, log=print) -> dic
 
     Returns {"k", "k_ext", "workload", "shapes" (circuit_stats and the
     quotient degree), "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
-    "proof_bytes", "proof", "prove_phases", "cached" ({"s", "equal",
+    "proof_bytes", "proof", "vk", "instances" (the chunk proof's, for the
+    recursion layers), "prove_phases", "cached" ({"s", "equal",
     "launches"}: the second call's seconds, whether its proof equals the
     first's, the kernel launches it made), "resident_gb", "peak_gb" (the
     device memory allocated before the SRS, and the peak; None on the
@@ -1040,7 +1041,7 @@ def super_prove_bench(k: int = 13, seed: int = 7, device=None, log=print) -> dic
         t0 = now()
         cp.srs()
         t1 = now()
-        pk, _ = cp.keys(SuperCircuit(b, codes, txs, params))
+        pk, vk = cp.keys(SuperCircuit(b, codes, txs, params))
         t2 = now()
         prove_phases: dict = {}
         proof = cp.gen_chunk_proof(b, codes, txs, timings=prove_phases)
@@ -1055,7 +1056,8 @@ def super_prove_bench(k: int = 13, seed: int = 7, device=None, log=print) -> dic
         "k": k, "k_ext": pk.k_ext, "workload": stats, "shapes": shapes,
         "srs_s": t1 - t0, "keygen_s": t2 - t1, "prove_s": t3 - t2,
         "verify_s": t4 - t3, "ok": bool(ok), "proof_bytes": len(proof.proof),
-        "proof": proof.proof, "prove_phases": prove_phases,
+        "proof": proof.proof, "vk": vk, "instances": proof.instances,
+        "prove_phases": prove_phases,
         "cached": {"s": t5 - t4, "equal": again.proof == proof.proof,
                    "launches": launches},
         "resident_gb": resident,

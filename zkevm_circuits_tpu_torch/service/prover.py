@@ -1,5 +1,5 @@
-"""Production proving API — chunk prover with file-memoized artifacts
-(port of the first half of zkevm_circuits_tpu/service/prover.py).
+"""Production proving API — chunk prover and recursion layers with
+file-memoized artifacts (port of zkevm_circuits_tpu/service/prover.py).
 
 Equivalent of the reference's `prover` crate (SURVEY.md §2.1 item 11):
   * `Proof` — JSON+base64 proof/vk serialization (prover/src/proof.rs:34)
@@ -11,7 +11,12 @@ Equivalent of the reference's `prover` crate (SURVEY.md §2.1 item 11):
     that load back onto the prover's device
   * `CircuitCapacityChecker` — row-usage estimation for block packing
     (prover/src/zkevm/capacity_checker.rs:116)
-The recursion layers (compression/aggregation) stack on this API next.
+  * `LayerProver` — layer-1 compression of an inner proof
+    (recursion/compression.py), keys per degree, proofs cached by the
+    inner proof's digest
+  * `BatchProver` — the batch statement over the chunks' deferred claims,
+    folded host-side or in-circuit (recursion/aggregation.py, fold.py)
+Every entry point takes `device`; None means the card.
 """
 
 from __future__ import annotations
@@ -21,18 +26,14 @@ import dataclasses
 import hashlib
 import json
 import os
-import pickle
-
-import torch
+import time
 
 from ..circuits.super_circuit import SuperCircuit, SuperParams
-from ..crypto.curve import G1
-from ..device import resolve
 from ..plonk.circuit import usable_rows
 from ..plonk.keygen import keygen
 from ..plonk.prover import prove
 from ..plonk.verifier import verify
-from ..poly.kzg import Srs
+from ..poly.kzg import Srs, srs_file
 from ..types.bytecode import Bytecode
 from ..utils.stats import timer
 from ..witness.builder import CircuitInputBuilder
@@ -82,24 +83,8 @@ class ChunkProver:
         planes and the G2 points), so it loads onto whichever device this
         prover runs on."""
         if self._srs is None:
-            path = os.path.join(self.params_dir, f"srs_k{self.k}.pkl")
-            if os.path.exists(path):
-                with open(path, "rb") as f:
-                    d = pickle.load(f)
-                self._srs = Srs(
-                    k=d["k"], g2=d["g2"], s_g2=d["s_g2"],
-                    g1_powers=G1(*(torch.as_tensor(a, device=resolve(self.device))
-                                   for a in d["g1_powers"])))
-            else:
-                with timer(f"SRS setup k={self.k}"):
-                    self._srs = Srs.unsafe_setup(self.k, device=self.device)
-                with open(path, "wb") as f:
-                    pickle.dump({
-                        "k": self._srs.k, "g2": self._srs.g2,
-                        "s_g2": self._srs.s_g2,
-                        "g1_powers": [c.cpu().numpy()
-                                      for c in self._srs.g1_powers],
-                    }, f)
+            self._srs = srs_file(os.path.join(self.params_dir, f"srs_k{self.k}.pkl"),
+                                 self.k, self.device)
         return self._srs
 
     def keys(self, circuit: SuperCircuit):
@@ -219,3 +204,153 @@ class CircuitCapacityChecker:
             v <= cap for key, v in rows.items() if key != "fits"
         )
         return rows
+
+
+def _on(device) -> dict:
+    """keygen/prove keywords for `device` (None, the card, is their
+    default)."""
+    return {} if device is None else {"device": device}
+
+
+class LayerProver:
+    """Recursion layers over inner proofs (reference 5-layer pipeline
+    Inner -> Layer1/2 (compression) -> Layer3 (aggregation) -> Layer4,
+    prover/src/config.rs:36-48; common/prover/compression.rs).
+
+    Layer1 here: CompressionCircuit — the inner proof's scalar
+    verification proven in-circuit, elliptic claim deferred
+    (recursion/compression.py).  Artifacts are load-or-gen cached like
+    every reference layer."""
+
+    def __init__(self, params_dir: str, output_dir: str | None = None,
+                 device=None):
+        self.params_dir = params_dir
+        self.output_dir = output_dir
+        self.device = device  # None: the card (resolved where it is used)
+        os.makedirs(params_dir, exist_ok=True)
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+        self._srs: dict[int, Srs] = {}
+        self._keys: dict[str, tuple] = {}
+
+    def srs(self, k: int) -> Srs:
+        """The SRS of degree k, kept in params_dir as host arrays."""
+        if k not in self._srs:
+            self._srs[k] = srs_file(os.path.join(self.params_dir, f"srs_k{k}.pkl"),
+                                    k, self.device)
+        return self._srs[k]
+
+    def gen_compression_proof(self, vk_inner, inner: Proof,
+                              name: str = "layer1", timings: dict | None = None):
+        """Inner proof (PoseidonTranscript) -> compression proof +
+        (claim, instances) for the aggregation layer.  Returns
+        (Proof, CompressionCircuit).  `timings`, when a dict, gets the
+        seconds of the circuit's host witness ("circuit"), and, unless the
+        proof comes from the cache, of the SRS, keygen and prove, and the
+        keygen's and prover's phases ("keygen_phases", "prove_phases")."""
+        from ..recursion.compression import CompressionCircuit
+
+        marks = timings if timings is not None else {}
+        t0 = time.perf_counter()
+        comp = CompressionCircuit(vk_inner, inner.proof, inner.instances)
+        kc = comp.min_k()
+        insts = comp.instances()
+        marks["circuit"] = time.perf_counter() - t0
+        digest = hashlib.sha256(inner.proof).hexdigest()[:16]
+        cache = (
+            os.path.join(self.output_dir, f"proof_{name}_{digest}.json")
+            if self.output_dir else None
+        )
+        if cache and os.path.exists(cache):
+            with open(cache) as f:
+                return Proof.from_json(f.read()), comp
+        t0 = time.perf_counter()
+        srs = self.srs(kc)
+        marks["srs"] = time.perf_counter() - t0
+        key = f"{name}_k{kc}"
+        t0 = time.perf_counter()
+        if key not in self._keys:
+            marks["keygen_phases"] = {}
+            with timer(f"keygen {key}"):
+                self._keys[key] = keygen(comp, kc, srs, timings=marks["keygen_phases"],
+                                         **_on(self.device))
+        pk, vk_c = self._keys[key]
+        marks["keygen"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        marks["prove_phases"] = {}
+        with timer(f"prove {name}"):
+            proof = prove(pk, comp, insts, srs, timings=marks["prove_phases"],
+                          **_on(self.device))
+        marks["prove"] = time.perf_counter() - t0
+        out = Proof(proof=proof, instances=insts, k=kc)
+        if cache:
+            with open(cache, "w") as f:
+                f.write(out.to_json())
+        return out, comp
+
+    def verify_compression_proof(self, name_k: str, proof: Proof) -> bool:
+        _, vk_c = self._keys[name_k]
+        return verify(vk_c, proof.instances, proof.proof)
+
+
+class BatchProver:
+    """Layer3 batching (reference aggregator::Prover::gen_agg_evm_proof,
+    prover/src/aggregator/prover.rs:69): check the chunks' deferred
+    claims with ONE folded pairing and commit the batch statement
+    (BatchHash over the chunk pi hashes).  `gen_batch_in_circuit` proves
+    the fold itself on `layers`' device."""
+
+    def gen_batch(self, items, chunk_hashes) -> dict:
+        """items: [(vk_inner, DeferredClaim, instance_values)];
+        chunk_hashes: [recursion.aggregation.ChunkHash]."""
+        from ..recursion.aggregation import (
+            BatchHash, fold_and_verify_claims,
+        )
+
+        assert fold_and_verify_claims(items), "deferred claim fold failed"
+        batch = BatchHash(chunk_hashes)
+        return {
+            "batch_pi_hash": hex(batch.pi_hash()),
+            "n_chunks": len(chunk_hashes),
+            "chunk_pi_hashes": [hex(c.pi_hash()) for c in chunk_hashes],
+        }
+
+    def gen_batch_in_circuit(self, layers: LayerProver, layer_items,
+                             chunk_hashes, srs_vk) -> dict:
+        """In-circuit aggregation fold (reference
+        aggregator/src/aggregation/circuit.rs:40 accumulation step):
+        `layer_items` = [(claim, instance_values)] from
+        CompressionLayerCircuit proofs; the fold circuit computes the
+        accumulation challenge and both folded points in-circuit
+        (recursion/fold.py), is PROVEN, and the returned record carries
+        the folded accumulator — valid iff verify_fold's ONE pairing
+        accepts (checked here)."""
+        from ..plonk.verifier import verify as plonk_verify
+        from ..recursion.aggregation import BatchHash
+        from ..recursion.fold import AggregationFoldCircuit, verify_fold
+        from ..recursion.layer import layer1_accumulator
+
+        accs = [layer1_accumulator(c, v) for c, v in layer_items]
+        circ = AggregationFoldCircuit(accs)
+        kk = circ.min_k()
+        srs = layers.srs(kk)
+        key = f"fold_k{kk}_m{len(accs)}"
+        if key not in layers._keys:
+            with timer(f"keygen {key}"):
+                layers._keys[key] = keygen(circ, kk, srs, **_on(layers.device))
+        pk, vk_f = layers._keys[key]
+        insts = circ.instances()
+        with timer("prove fold"):
+            fproof = prove(pk, circ, insts, srs, **_on(layers.device))
+        assert plonk_verify(vk_f, insts, fproof)
+        assert verify_fold(srs_vk, insts[0], len(accs)), (
+            "folded accumulator pairing rejected"
+        )
+        batch = BatchHash(chunk_hashes)
+        return {
+            "batch_pi_hash": hex(batch.pi_hash()),
+            "n_chunks": len(chunk_hashes),
+            "chunk_pi_hashes": [hex(c.pi_hash()) for c in chunk_hashes],
+            "fold_proof": Proof(proof=fproof, instances=insts, k=kk),
+            "folded_acc": insts[0][-8:],
+        }

@@ -9,7 +9,9 @@ of their circuits.
 
 NAME is demo_poseidon (the k=5 DemoCircuit under the Poseidon transcript),
 poseidon, mpt, pi, super (the k=9 SuperCircuit over
-tests/test_super_circuit.py::_witness()), compression (the k=10
+tests/test_super_circuit.py::_witness()), testool (the k=9 SuperCircuit
+that testool.run_state_test proves at its prove level for the sstoreGas
+filler of tests/test_testool.py), compression (the k=10
 CompressionCircuit over a k=5 DemoCircuit proof made under the Poseidon
 transcript) or batch_hash (the k=10 BatchHashCircuit over three chunks).  `jax` proves the golden's
 witness with the JAX package, the reference, and prints the lines PERF.md
@@ -38,8 +40,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 
-NAMES = ("demo_poseidon", "poseidon", "mpt", "pi", "super", "compression",
-         "batch_hash")
+NAMES = ("demo_poseidon", "poseidon", "mpt", "pi", "super", "testool",
+         "compression", "batch_hash")
 
 
 def _jax():
@@ -100,9 +102,66 @@ def _port():
             prove, verify, transcript, {"device": "cpu"})
 
 
+def prove_testool(side: str) -> bool:
+    """The testool golden through each package's own run_state_test at the
+    prove level; its keygen and prove are wrapped to time them and keep the
+    proof bytes."""
+    import json
+
+    from zkevm_circuits_tpu_torch.plonk import demo
+
+    if side == "jax":
+        _jax()
+        import zkevm_circuits_tpu.plonk.keygen as kg
+        import zkevm_circuits_tpu.plonk.prover as pv
+        from zkevm_circuits_tpu import testool
+        cfg = testool.CircuitsConfig(level="prove", k=demo.TESTOOL_GOLDEN_K,
+                                     srs_tau=demo.TESTOOL_GOLDEN_TAU)
+    else:
+        import torch
+
+        torch.set_num_threads(2)
+        import zkevm_circuits_tpu_torch.plonk.keygen as kg
+        import zkevm_circuits_tpu_torch.plonk.prover as pv
+        from zkevm_circuits_tpu_torch import testool
+        cfg = testool.CircuitsConfig(level="prove", k=demo.TESTOOL_GOLDEN_K,
+                                     srs_tau=demo.TESTOOL_GOLDEN_TAU,
+                                     device="cpu")
+    proofs = []
+    keygen0, prove0 = kg.keygen, pv.prove
+
+    def keygen(*a, **kw):
+        t = time.time()
+        out = keygen0(*a, **kw)
+        print("testool keygen", time.time() - t, flush=True)
+        return out
+
+    def prove(*a, **kw):
+        t = time.time()
+        proofs.append(bytes(prove0(*a, **kw)))
+        print("testool prove", time.time() - t, flush=True)
+        return proofs[-1]
+
+    kg.keygen, pv.prove = keygen, prove
+    t0 = time.time()
+    st, = testool.load_json_fillers(json.dumps(demo.TESTOOL_GOLDEN_FILLER))
+    r = testool.run_state_test(st, cfg)
+    proof, = proofs
+    digest = hashlib.sha256(proof).hexdigest()
+    print("testool RESULT", cfg.k, digest, len(proof), flush=True)
+    print("testool verify", r.ok and not r.skipped, repr(r.reason),
+          time.time() - t0, flush=True)
+    if side == "port":
+        print("testool golden", digest == demo.TESTOOL_GOLDEN_SHA256, flush=True)
+    return r.ok and not r.skipped and (
+        side == "jax" or digest == demo.TESTOOL_GOLDEN_SHA256)
+
+
 def prove_golden(side: str, name: str) -> bool:
     from zkevm_circuits_tpu_torch.plonk import demo
 
+    if name == "testool":
+        return prove_testool(side)
     (Demo, modules, setup, keygen, prove, verify, tr, dev) = \
         _jax() if side == "jax" else _port()
     t0 = time.time()

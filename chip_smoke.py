@@ -12,10 +12,11 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. eighteen paths, each with the launch counts set to 0 just before it
-     and read, with the path's seconds, just after it; the run fails if a
-     kernel the path names was not launched on it (K4 on the two mesh
-     paths, every other kernel, both forms of K5 included, on all
+  3. twenty-one paths, each with the launch counts set to 0 just before
+     it and read, with the path's seconds, just after it; the run fails if
+     a kernel the path names was not launched on it (K4 on entry_k10 and
+     the two mesh paths, K5 and K6 on msm_grid, K1 and K5 on entry_k10,
+     every other kernel, both forms of K5 included, on the other
      eighteen):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
@@ -35,7 +36,8 @@ Phases, one line each (the process exits non-zero on any failure):
                  the reference's proof (golden), it verifies, and a memory
                  byte flipped in the MSTORE row (with the RW table
                  agreeing) is rejected;
-     evm_k14     the EVM circuit at k=14, full width (434 advice columns,
+     evm_k13     the EVM circuit at k=EVM_K = 13 (14 before, cut for
+                 the script's time), full width (434 advice columns,
                  1,694 gate polynomials, 12 logUps), seeded transactions of
                  looping contracts filling >= 90% of the rows with RW rows
                  (service.bench_circuits.evm_workload): SRS, keygen, prove,
@@ -82,8 +84,9 @@ Phases, one line each (the process exits non-zero on any failure):
                   its sha256 equals the reference's proof, it verifies,
                   and a flipped carry cell of the ADD step (gate-only) is
                   rejected;
-     super_k13    the chunk prover (service.prover.ChunkProver) at
-                  k=SUPER_K = 13, full width, over seeded signed
+     super_k12    the chunk prover (service.prover.ChunkProver) at
+                  k=SUPER_K = 12 (13 before, cut for the script's
+                  time), full width, over seeded signed
                   transactions whose contracts also run CALLDATACOPY,
                   EXP, MULMOD/ADDMOD and SHA3 (State, EVM, Bytecode, Tx,
                   RLP, Copy, Exp, MulMod and Keccak on; the fullest region
@@ -106,7 +109,7 @@ Phases, one line each (the process exits non-zero on any failure):
                       rejected), and BatchHashCircuit at full width,
                       MAX_AGG_SNARKS = 15 chunks, at k=13: SRS, keygen,
                       prove, verify;
-     recursion_chunk  the production layer 1 over super_k13's chunk
+     recursion_chunk  the production layer 1 over super_k12's chunk
                       proof: service.prover.LayerProver (device None, the
                       card).gen_compression_proof, its tape's rows, min_k
                       and k_ext, keygen and prove phases, resident and
@@ -116,6 +119,20 @@ Phases, one line each (the process exits non-zero on any failure):
                       gen_batch's batch hash; a second
                       gen_compression_proof from the proof cache, equal
                       and with no launch;
+     testool_k9       the testool golden (plonk/demo.py: the sstoreGas
+                      filler of tests/test_testool.py) through
+                      testool.run_state_test's mock level, then its prove
+                      level's SuperCircuit at k=9 (tau 0xBEEF, rng 0x7E57):
+                      its sha256 equals the reference's proof, it verifies,
+                      and the ADD step's flipped carry cell is rejected;
+     msm_grid         poly/msm.py::msm_grid against msm at n=2^16 in
+                      affine form, over SRS powers with distinct=True and
+                      over seeded points with duplicates, infinities and
+                      zero scalars in complete mode, both timed;
+     entry_k10        entry.entry()'s NTT -> product -> iNTT step at K=10
+                      on the card, equal byte for byte to the same step on
+                      CPU tensors; entry.dryrun_multichip(1) on the card
+                      (NCCL, one rank, its own process group);
      then, on a torch.distributed NCCL group of one rank (the sharded
      prover's D = 1 route: every iNTT at k and coset transform at k_ext is
      the radix-2 ladder, one K4 launch a stage):
@@ -772,15 +789,18 @@ def prove_evm_k9(dev, log) -> list:
     return fails
 
 
-def prove_evm_k14(dev, log, gpu: str) -> list:
-    """The EVM circuit at k=14, full width, over the seeded looping-contract
+EVM_K = 13
+
+
+def prove_evm_full(dev, log, gpu: str) -> list:
+    """The EVM circuit at k=EVM_K, full width, over the seeded looping-contract
     workload of service.bench_circuits.evm_workload (RW rows >= 90% of the
     usable rows)."""
     from zkevm_circuits_tpu_torch.service.bench_circuits import evm_prove_bench
 
-    r = evm_prove_bench(14, seed=SEED, device=dev, log=log)
+    r = evm_prove_bench(EVM_K, seed=SEED, device=dev, log=log)
     cs, w = r["cs"], r["workload"]
-    log(f"[evm k=14] card={gpu!r} txs={w['txs']} steps={w['steps']} "
+    log(f"[evm k={EVM_K}] card={gpu!r} txs={w['txs']} steps={w['steps']} "
         f"rw_rows={w['rw_rows']} rw_fill={w['rw_fill']:.4f} "
         f"advice={cs.num_advice} gate_polys={sum(len(g.polys) for g in cs.gates)} "
         f"logups={len(cs.logups)} logup_inputs={sum(len(lg.inputs) for lg in cs.logups)} "
@@ -788,13 +808,13 @@ def prove_evm_k14(dev, log, gpu: str) -> list:
         f"{r['keygen_s']:.2f} s prove {r['prove_s']:.2f} s verify "
         f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
-    log(f"[evm k=14] prove phases (s, card={gpu!r}): "
+    log(f"[evm k={EVM_K}] prove phases (s, card={gpu!r}): "
         f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
-    log(f"[evm k=14] keygen phases (s, card={gpu!r}): "
+    log(f"[evm k={EVM_K}] keygen phases (s, card={gpu!r}): "
         f"{json.dumps({k_: round(v, 3) for k_, v in r['keygen_phases'].items()})}")
-    fails = [] if r["ok"] else ["evm k=14 proof did not verify"]
+    fails = [] if r["ok"] else [f"evm k={EVM_K} proof did not verify"]
     if w["rw_fill"] < 0.9:
-        fails.append(f"evm k=14 workload filled {w['rw_fill']:.4f} of the rows")
+        fails.append(f"evm k={EVM_K} workload filled {w['rw_fill']:.4f} of the rows")
     return fails
 
 
@@ -1143,12 +1163,13 @@ def prove_super_k9(dev, log) -> list:
                           {"super": ("carry_flip", flip)})
 
 
-SUPER_K = 13
+SUPER_K = 12
 
 
 def prove_super_full(dev, log, gpu: str, chunk: dict) -> list:
-    """The chunk prover at k=SUPER_K = 13 (the reference's degree for its
-    full composition, tests/test_super_circuit.py:157), full width, over
+    """The chunk prover at k=SUPER_K = 12 (the reference's degree for its
+    full composition is 13, tests/test_super_circuit.py:157; cut for the
+    script's time), full width, over
     service.bench_circuits.super_workload: seeded signed transactions of
     looping contracts that also run CALLDATACOPY, EXP, MULMOD/ADDMOD and
     a SHA3, so State, EVM, Bytecode, Tx, RLP, Copy, Exp, MulMod and Keccak
@@ -1311,7 +1332,7 @@ def prove_recursion_k10(dev, log, gpu: str) -> list:
 
 
 def prove_recursion_chunk(dev, log, gpu: str, chunk: dict) -> list:
-    """The production layer 1 over the real chunk proof: super_k13's
+    """The production layer 1 over the real chunk proof: super_k12's
     Poseidon-transcript proof compressed by the service's LayerProver
     (device None: the card).  Logs the tape's rows, min_k, k_ext, the
     compression circuit's stats, the host-witness, SRS, keygen and prove
@@ -1334,7 +1355,7 @@ def prove_recursion_chunk(dev, log, gpu: str, chunk: dict) -> list:
     from zkevm_circuits_tpu_torch.utils.stats import circuit_stats
 
     if "vk" not in chunk:
-        return ["recursion_chunk: super_k13 left no chunk proof"]
+        return [f"recursion_chunk: super_k{SUPER_K} left no chunk proof"]
     fails = []
     vk_chunk = chunk["vk"]
     inner = Proof(proof=chunk["proof"], instances=chunk["instances"], k=vk_chunk.k)
@@ -1398,6 +1419,131 @@ def prove_recursion_chunk(dev, log, gpu: str, chunk: dict) -> list:
     if not equal or launches:
         fails.append("recursion_chunk: the second gen_compression_proof was no cache hit")
     return fails
+
+
+def prove_testool_k9(dev, log) -> list:
+    """The testool golden (plonk/demo.py: tests/test_testool.py's sstoreGas
+    filler): testool.run_state_test passes it through the mock level; the
+    prove level's SuperCircuit proved on the card (k=9, tau 0xBEEF, rng
+    0x7E57, Blake2b) equals the reference's proof and verifies; the ADD
+    step's first carry cell flipped (gate-only: on the CPU the MockProver
+    finds only 'ADD byte 0/1' failing) is proved under the same keys and
+    rejected.  One keygen, two proofs."""
+    from zkevm_circuits_tpu_torch import testool
+    from zkevm_circuits_tpu_torch.circuits.super_circuit import SuperCircuit
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.testool import statetest
+
+    fails = []
+    st, = testool.load_json_fillers(json.dumps(demo.TESTOOL_GOLDEN_FILLER))
+    t0 = time.perf_counter()
+    mock = testool.run_state_test(st, testool.CircuitsConfig(level="mock"))
+    cfg = testool.CircuitsConfig(level="prove", k=demo.TESTOOL_GOLDEN_K,
+                                 srs_tau=demo.TESTOOL_GOLDEN_TAU, device=dev)
+    early, circ = statetest._host_levels(st, cfg)
+    t1 = time.perf_counter()
+    if not (mock.ok and not mock.skipped) or early is not None:
+        return [f"testool_k9: the host levels stopped: {mock} {early}"]
+    keys = statetest._keygen_level(circ, cfg)
+    t2 = time.perf_counter()
+    proof, ok = statetest._prove_level(circ, cfg, keys)
+    t3 = time.perf_counter()
+    digest = hashlib.sha256(proof).hexdigest()
+    golden = digest == demo.TESTOOL_GOLDEN_SHA256 and len(proof) == demo.TESTOOL_GOLDEN_LEN
+    row = next(i for i, s in enumerate(circ.evm.steps) if s.exec_state == "ADD")
+    Flip = _tamper(SuperCircuit, lambda s: s.evm.c_carry[0], [row],
+                   lambda v: 1 - (v != 0))
+    bad = object.__new__(Flip)
+    bad.__dict__.update(circ.__dict__)
+    _, bad_ok = statetest._prove_level(bad, cfg, keys)
+    t4 = time.perf_counter()
+    log(f"[testool_k9] {mock.name} mock={mock.status} host levels "
+        f"{t1 - t0:.2f} s setup+keygen {t2 - t1:.2f} s prove {t3 - t2:.2f} s "
+        f"proof_bytes={len(proof)} sha256={digest} golden={golden} "
+        f"verify={ok} carry_flip(row {row}) verify={bad_ok} ({t4 - t3:.2f} s)")
+    if not golden:
+        fails.append("testool_k9: the proof differs from the reference's")
+    if not ok:
+        fails.append("testool_k9: the proof did not verify")
+    if bad_ok:
+        fails.append("testool_k9: the carry flip was accepted")
+    return fails
+
+
+MSM_GRID_K = 16
+
+
+def check_msm_grid(dev, log, gpu: str) -> list:
+    """poly/msm.py::msm_grid against msm on the card at n = 2^MSM_GRID_K,
+    in affine form: over Srs.unsafe_setup's powers with distinct=True
+    (affine, then incomplete adds), and over seeded points with duplicates,
+    infinities and zero scalars in complete mode.  Each timed (a second,
+    warm call of each, host index building included)."""
+    from zkevm_circuits_tpu_torch.crypto.curve import G1, g1_to_affine_ints
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.poly.msm import _grid_indices_host, msm, msm_grid
+
+    n = 1 << MSM_GRID_K
+    rng = np.random.default_rng(SEED + 3)
+    srs = Srs.unsafe_setup(MSM_GRID_K, tau=0x5EED, device=dev)
+    pts = srs.g1_powers
+    dup = G1(*(c.clone() for c in pts))
+    for c in dup:
+        c[1::4] = c[0::4].clone()  # every fourth point repeats the one before it
+    dup.z[7::97] = 0  # some points at infinity
+    sc = torch.as_tensor(rng.integers(0, 256, (n, 32), dtype=np.uint8), device=dev)
+    sc_zero = sc.clone()
+    sc_zero[::5] = 0  # zero scalars
+    fails = []
+    one = lambda p: G1(*(c[None] for c in p))  # noqa: E731
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t) * 1e3
+
+    for label, points, scalars, distinct in (
+            ("srs distinct", pts, sc, True),
+            ("seeded complete", dup, sc_zero, False)):
+        grid, grid_ms = timed(lambda: msm_grid(points, scalars, distinct=distinct))
+        scan, scan_ms = timed(lambda: msm(points, scalars))
+        t = time.perf_counter()
+        _, slots = _grid_indices_host(scalars.cpu().numpy())
+        host_ms = (time.perf_counter() - t) * 1e3
+        equal = g1_to_affine_ints(one(grid)) == g1_to_affine_ints(one(scan))
+        log(f"[msm_grid] card={gpu!r} n=2^{MSM_GRID_K} {label}: msm_grid "
+            f"{grid_ms:.2f} ms (its host indices {host_ms:.2f} ms, S={slots}) "
+            f"msm {scan_ms:.2f} ms equal={equal}")
+        if not equal:
+            fails.append(f"msm_grid ({label}) differs from msm")
+    return fails
+
+
+def run_entry(dev, log) -> list:
+    """entry.entry()'s NTT -> product -> iNTT step at K=10 on the card
+    against the same step on CPU tensors (the plain versions), byte for
+    byte; then entry.dryrun_multichip(1) on the card (NCCL, one rank: the
+    sharded NTT, MSM, prefix scans and MiniCircuit proof, each equal to its
+    single-device result)."""
+    from zkevm_circuits_tpu_torch.entry import K, dryrun_multichip, entry
+
+    step, (x, y) = entry()
+    t0 = time.perf_counter()
+    got = step(x, y)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    want = step(x.cpu(), y.cpu())
+    equal = torch.equal(got.cpu(), want)
+    t2 = time.perf_counter()
+    summary = dryrun_multichip(1)
+    t3 = time.perf_counter()
+    log(f"[entry_k10] step K={K} card {1e3 * (t1 - t0):.2f} ms (first call) "
+        f"cpu {t2 - t1:.2f} s equal={equal}; dryrun_multichip(1) "
+        f"{t3 - t2:.2f} s {json.dumps(summary)}")
+    return [] if equal else ["entry_k10: the step on the card differs from the CPU's"]
 
 
 KERNELS = [
@@ -1464,7 +1610,7 @@ def main() -> int:
     drive_path(f"keccak_k{KECCAK_K}", lambda: prove_keccak_full(dev, log, gpu),
                single)
     drive_path("evm_k9", lambda: prove_evm_k9(dev, log), single)
-    drive_path("evm_k14", lambda: prove_evm_k14(dev, log, gpu), single)
+    drive_path(f"evm_k{EVM_K}", lambda: prove_evm_full(dev, log, gpu), single)
     drive_path("partners_k9", lambda: prove_partners_k9(dev, log), single)
     drive_path("partners_k16", lambda: prove_partners_k16(dev, log, gpu), single)
     drive_path("precompiles_k9", lambda: prove_precompiles_k9(dev, log), single)
@@ -1481,6 +1627,10 @@ def main() -> int:
     drive_path("recursion_chunk",
                lambda: prove_recursion_chunk(dev, log, gpu, chunk), single)
     chunk.clear()
+    drive_path("testool_k9", lambda: prove_testool_k9(dev, log), single)
+    drive_path("msm_grid", lambda: check_msm_grid(dev, log, gpu), ("K5", "K6"))
+    # before the mesh paths: the dry run makes its own process group
+    drive_path("entry_k10", lambda: run_entry(dev, log), ("K1", "K4", "K5"))
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:

@@ -453,3 +453,62 @@ def test_chunk_prover_on_card(dev, tmp_path):
     srs = ChunkProver(str(tmp_path / "params"), k=9).srs()
     assert srs.device.type == "cuda"
     assert torch.equal(srs.g1_powers.x, cp.srs().g1_powers.x)
+
+
+@pytest.mark.parametrize("distinct", [False, True], ids=["complete", "distinct"])
+def test_msm_grid_on_card_matches_msm(dev, distinct):
+    """msm_grid on CUDA tensors equals msm in affine form.  Its launches:
+    one K5 per halving level of the grid (one window group at this n),
+    8 + 7 in the bucket weighting and 31 in the Horner; one K6 per bit of
+    the weighting (7) and per window step of the Horner (31)."""
+    from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
+    from zkevm_circuits_tpu_torch.poly.msm import _grid_indices_host, msm, msm_grid
+
+    n = 1 << 12
+    pts = srs_g1_powers(n, 38, dev)
+    sc = _rand_fe(39, n, fr().modulus)
+    sc[::5] = 0
+    _, S = _grid_indices_host(sc)
+    scal = torch.as_tensor(sc, device=dev)
+    before = dict(cf.LAUNCHES)
+    out = msm_grid(pts, scal, distinct=distinct)
+    assert cf.LAUNCHES["g1_add"] - before["g1_add"] == S.bit_length() - 1 + 8 + 7 + 31
+    assert cf.LAUNCHES["g1_double"] - before["g1_double"] == 7 + 31
+    want = msm(pts, scal)
+    one = lambda p: G1(*(c[None] for c in p))  # noqa: E731
+    assert g1_to_affine_ints(one(out)) == g1_to_affine_ints(one(want))
+
+
+def test_testool_prove_level_on_card_matches_golden(dev):
+    """The testool golden (plonk/demo.py): run_state_test's prove level on
+    the card (device None) passes, and its proof is the reference's."""
+    import json
+
+    from zkevm_circuits_tpu_torch import testool
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.testool import statetest
+
+    st, = testool.load_json_fillers(json.dumps(demo.TESTOOL_GOLDEN_FILLER))
+    cfg = testool.CircuitsConfig(level="prove", k=demo.TESTOOL_GOLDEN_K,
+                                 srs_tau=demo.TESTOOL_GOLDEN_TAU)
+    r = testool.run_state_test(st, cfg)
+    assert r.ok and not r.skipped, r.reason
+    _, circ = statetest._host_levels(st, cfg)
+    proof, ok = statetest._prove_level(circ, cfg)
+    assert ok and len(proof) == demo.TESTOOL_GOLDEN_LEN
+    assert hashlib.sha256(proof).hexdigest() == demo.TESTOOL_GOLDEN_SHA256
+
+
+def test_entry_step_on_card_matches_cpu(dev):
+    """entry()'s step on the card: 3 x K K4 launches (three transforms)
+    and 2 K1 launches (the product, n^-1); equal to the step on CPU
+    tensors."""
+    from zkevm_circuits_tpu_torch.entry import K, entry
+
+    step, (x, y) = entry()
+    assert x.is_cuda and y.is_cuda
+    before = dict(cf.LAUNCHES)
+    got = step(x, y)
+    assert cf.LAUNCHES["butterfly_stage"] - before["butterfly_stage"] == 3 * K
+    assert cf.LAUNCHES["mont_mul"] - before["mont_mul"] == 2
+    assert torch.equal(got.cpu(), step(x.cpu(), y.cpu()))

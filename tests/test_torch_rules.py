@@ -5,8 +5,9 @@ module imports without a card or a compiler; the kernel build directory
 is git-ignored; each kernel source names the TPU kernel it replaces.  The
 EVM circuit's subpackages (types, tracer, witness, circuits), the
 Poseidon chain's (crypto, trie, witness, circuits) and the chunk
-prover's (circuits/super_circuit, service, utils) and the recursion
-layer's (recursion) are held to the same rules."""
+prover's (circuits/super_circuit, service, utils), the recursion
+layer's (recursion) and the state-test tool's (testool) are held to the
+same rules, as is entry.py at the package's root."""
 
 import ast
 import importlib
@@ -33,12 +34,14 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 SUBPACKAGES = ("circuits", "crypto", "ops", "parallel", "plonk", "poly",
-               "recursion", "service", "tracer", "trie", "types", "utils",
-               "witness")
+               "recursion", "service", "testool", "tracer", "trie", "types",
+               "utils", "witness")
 
 
 def test_rules_cover_every_subpackage():
-    """parallel/ (the sharded prover) is held to the same rules."""
+    """parallel/ (the sharded prover) is held to the same rules, and so is
+    entry.py at the package's root."""
+    assert PKG / "entry.py" in FILES
     for sub in SUBPACKAGES:
         assert any(p.parent == PKG / sub for p in FILES), sub
     assert sorted(d.name for d in PKG.iterdir()
@@ -61,6 +64,8 @@ PIPELINE = {
     "recursion": ("__init__", "tape", "compression", "aggregation", "ecmsm",
                   "layer", "fold", "aggregation_snarks", "batch_hash",
                   "evm_verifier", "pipeline"),
+    "testool": ("__init__", "statetest", "oneliner", "json_parser",
+                "gen_suite", "runner"),
 }
 
 

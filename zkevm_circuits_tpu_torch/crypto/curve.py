@@ -18,7 +18,7 @@ import torch
 from ..device import resolve
 from ..ops import cuda_curve
 from .field import fq
-from .params import FQ_MODULUS, G1_GEN  # noqa: F401  (the reference names G1_GEN here too)
+from .params import FQ_MODULUS, G1_GEN
 
 
 class G1(NamedTuple):
@@ -70,6 +70,18 @@ def g1_to_affine_ints(p: G1) -> list:
     xs = F.to_ints(ax)
     ys = F.to_ints(ay)
     return [None if i else (x, y) for i, x, y in zip(inf, xs, ys)]
+
+
+def g1_is_infinity(p: G1):
+    return F.is_zero(p.z)
+
+
+def g1_generator(shape=(), device=None) -> G1:
+    """The generator (1, 2), broadcast to `shape` on `device` (None: the
+    card)."""
+    reps = int(np.prod(shape))
+    g = g1_from_affine_ints([G1_GEN] * reps, device)
+    return G1(*(c.reshape(*shape, 32) for c in g))
 
 
 def g1_double(p: G1, times: int = 1) -> G1:

@@ -536,3 +536,66 @@ def recursion_golden(name: str, m: dict | None = None, inner=None):
         c = m["batch_hash"].BatchHashCircuit(mk_batch(m))
         return c, [c.instance()]
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# the testool's golden: the `sstoreGas` filler of tests/test_testool.py
+# (1 + 1 stored to slot 0 of 0x095e...2d87, one signed transaction with
+# value 100000) loaded by testool.load_json_fillers and run by
+# testool.run_state_test at the prove level: the SuperCircuit that passed
+# the MockProver at k=9, proved with Srs.unsafe_setup(9,
+# tau=TESTOOL_GOLDEN_TAU), no instances, rng=np.random.default_rng(
+# TESTOOL_GOLDEN_SEED) and the Blake2b transcript (CircuitsConfig's
+# defaults).  TESTOOL_GOLDEN_SHA256 and TESTOOL_GOLDEN_LEN are the sha256
+# and length of the reference's proof (the JAX package on the CPU through
+# `chain_goldens.py jax testool`); the port's proof must equal it.
+
+TESTOOL_GOLDEN_K = 9
+TESTOOL_GOLDEN_TAU = 0xBEEF
+TESTOOL_GOLDEN_SEED = 0x7E57
+TESTOOL_GOLDEN_SHA256 = "15217dac8928b9b65203f4ae2dc1bfcae0e8b4cba90b829a85aebe8655b6e1d9"
+TESTOOL_GOLDEN_LEN = 175136
+TESTOOL_GOLDEN_FILLER = {
+    "sstoreGas": {
+        "env": {
+            "currentCoinbase": "0x2adc25665018aa1fe0e6bc666dac8fc2697ff9ba",
+            "currentGasLimit": "0x05f5e100",
+            "currentNumber": "1",
+            "currentTimestamp": "1000",
+        },
+        "pre": {
+            "0x095e7baea6a6c7c4c2dfeb977efac326af552d87": {
+                "balance": "1000000000000000000",
+                "code": ":raw 0x600160010160005500",
+                "nonce": "0",
+                "storage": {},
+            },
+            "0xa94f5374fce5edbc8e2a8697c15331677e6ebf0b": {
+                "balance": "1000000000000000000",
+                "code": "0x",
+                "nonce": "0",
+                "storage": {},
+            },
+        },
+        "transaction": {
+            "data": ["0x"],
+            "gasLimit": ["400000"],
+            "gasPrice": "10",
+            "nonce": "0",
+            "secretKey": "0x45a915e4d060149eb4365960e6a7a45f334393093061116b197e3240065ff2d8",
+            "sender": "0xa94f5374fce5edbc8e2a8697c15331677e6ebf0b",
+            "to": "0x095e7baea6a6c7c4c2dfeb977efac326af552d87",
+            "value": ["100000"],
+        },
+        "expect": [
+            {
+                "indexes": {"data": -1, "gas": -1, "value": -1},
+                "result": {
+                    "0x095e7baea6a6c7c4c2dfeb977efac326af552d87": {
+                        "storage": {"0x00": "0x02"}
+                    }
+                },
+            }
+        ],
+    }
+}

@@ -174,9 +174,7 @@ def lagrange_interpolate(points: list[int], values: list[int]) -> list[int]:
     circuit that queries a column at hundreds of rotations opens it at a
     point set that large)."""
     m = len(points)
-    z = [1]
-    for p in points:
-        z = poly_mul_linear(z, (-p) % R)
+    z = vanishing_poly(points)
     coeffs = [0] * m
     for i, pi in enumerate(points):
         num = [0] * m
@@ -200,6 +198,14 @@ def poly_mul_linear(coeffs: list[int], c: int) -> list[int]:
     for i, a in enumerate(coeffs):
         out[i] = (out[i] + a * c) % R
         out[i + 1] = (out[i + 1] + a) % R
+    return out
+
+
+def vanishing_poly(points: list[int]) -> list[int]:
+    """prod_p (X - p), host ints, lowest coefficient first."""
+    out = [1]
+    for p in points:
+        out = poly_mul_linear(out, (-p) % R)
     return out
 
 

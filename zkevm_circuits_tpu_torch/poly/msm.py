@@ -24,6 +24,11 @@ Results are equal to the reference's as group elements; compare them in
 affine form.  Scalars are (n, 32) uint8 little-endian bytes (plain, not
 Montgomery).
 
+`msm_grid` is the reference's bucket-grid MSM: per window, the points are
+grouped by digit on the host into a (256 buckets, S slots) grid padded
+with infinity, and each bucket sums by uniform halvings, each halving
+level one K5 launch over all windows at once; `msm` does not use it.
+
 `make_sharded_msm` splits the rows over the ranks of a torch.distributed
 group: a local MSM per rank, then an all_gather of the partial points and
 a tree sum.
@@ -31,11 +36,14 @@ a tree sum.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..crypto.curve import G1, g1_add, g1_bucket_add, g1_double, g1_infinity
 
+N_WINDOWS = 32
+N_BUCKETS = 256  # digits 0..255; bucket 0 is never used by the reduction
 SMALL_N = 1 << 11  # below this, 4-bit windows
 BUCKET_BYTES_BUDGET = 4 << 30  # bucket arrays of one column group
 
@@ -141,6 +149,74 @@ def msm(points: G1, scalars_u8) -> G1:
         torch.as_tensor(scalars_u8, device=points.x.device)
     out = msm_many(points, s[None])
     return G1(*(t[0] for t in out))
+
+
+def _grid_indices_host(scalars_np: np.ndarray):
+    """(32, 256, S) gather indices + S, built with numpy (host): per
+    window, stable-group point indices by digit; digit-0 and empty slots
+    map to the sentinel row n (infinity)."""
+    n = scalars_np.shape[0]
+    digits = scalars_np.astype(np.int64).T  # (32, n)
+    orders = np.argsort(digits, axis=1, kind="stable")
+    sorted_d = np.take_along_axis(digits, orders, axis=1)
+    # starts[w, b] = first sorted position of digit b in window w
+    bvals = np.arange(N_BUCKETS)
+    starts = np.stack([
+        np.searchsorted(sorted_d[w], bvals) for w in range(digits.shape[0])
+    ])
+    counts = np.concatenate(
+        [starts[:, 1:], np.full((starts.shape[0], 1), n)], axis=1
+    ) - starts
+    counts[:, 0] = 0  # digit 0 contributes nothing
+    maxc = int(counts.max()) if n else 0
+    S = 1 << max(3, (maxc - 1).bit_length()) if maxc else 8
+    r = np.arange(S)
+    pos = np.clip(starts[:, :, None] + r[None, None, :], 0, max(n - 1, 0))
+    valid = (r[None, None, :] < counts[:, :, None])
+    valid[:, 0, :] = False
+    idx = np.where(
+        valid, np.take_along_axis(
+            orders, pos.reshape(orders.shape[0], -1), axis=1
+        ).reshape(pos.shape), n,
+    ).astype(np.int32)
+    return idx, S
+
+
+def msm_grid(points: G1, scalars_u8, distinct: bool = False) -> G1:
+    """Bucket-grid MSM: sum_i scalars[i] * points[i] -> one Jacobian point
+    (one host round trip builds the bucket gather indices in numpy).
+
+    Windows run in groups whose grids fit BUCKET_BYTES_BUDGET; each
+    halving level of a group is one g1_add (K5), each window sum's eight
+    doublings one g1_double (K6).  distinct=True takes the cheap add
+    modes (affine at level 0, incomplete above): it REQUIRES all points
+    pairwise distinct and affine (z in {0, mont(1)}), the layout of SRS
+    power batches.  The default complete mode has no preconditions."""
+    dev = points.x.device
+    s_np = scalars_u8.cpu().numpy() if isinstance(scalars_u8, torch.Tensor) \
+        else np.asarray(scalars_u8)
+    idx, S = _grid_indices_host(s_np)
+    idx = torch.as_tensor(idx, device=dev).long()
+    pts = [torch.cat([c, i]) for c, i in zip(points, g1_infinity((1,), dev))]
+    group = max(1, BUCKET_BYTES_BUDGET // (3 * N_BUCKETS * S * 32))
+    sums = []
+    for w0 in range(0, N_WINDOWS, group):
+        g = [c[idx[w0:w0 + group]] for c in pts]  # (wg, 256, S, 32)
+        cur, first = S, True
+        while cur > 1:
+            mode = ("affine" if first else "incomplete") if distinct \
+                else "complete"
+            g = list(g1_add(G1(*(c[:, :, 0::2] for c in g)),
+                            G1(*(c[:, :, 1::2] for c in g)), mode=mode))
+            cur //= 2
+            first = False
+        sums.append(G1(*(c[:, :, 0] for c in g)))  # (wg, 256) bucket sums
+    buckets = G1(*(torch.cat(cs) for cs in zip(*sums)))
+    wsum = _bucket_weighted_sum(buckets, 8)  # (32,) window sums
+    res = G1(*(t[N_WINDOWS - 1] for t in wsum))
+    for w in range(N_WINDOWS - 2, -1, -1):
+        res = g1_add(g1_double(res, 8), G1(*(t[w] for t in wsum)))
+    return res
 
 
 def msm_sharded_body(points: G1, scalars_u8: torch.Tensor, group) -> G1:

@@ -7,17 +7,21 @@ Phases, one line each (the process exits non-zero on any failure):
   1. the card's name and power limit; the build of the CUDA kernels
      (csrc/*.cu with nvcc for sm_90a) and its time;
   2. every kernel (K1 mont_mul, K2 twiddle_mul, K3 redc34, K4
-     butterfly_stage, K5 g1_add in three modes and its bucket-step form
+     butterfly_stage and its first stage with twiddle 1 as Fr's add and
+     sub, fr_add_sub, K5 g1_add in three modes and its bucket-step form
      g1_bucket_add, K6 g1_double once and eight times) against its plain
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. twenty-one paths, each with the launch counts set to 0 just before
-     it and read, with the path's seconds, just after it; the run fails if
-     a kernel the path names was not launched on it (K4 on entry_k10 and
-     the two mesh paths, K5 and K6 on msm_grid, K1 and K5 on entry_k10,
-     every other kernel, both forms of K5 included, on the other
-     eighteen):
+  3. twenty-three paths, each with the launch counts set to 0 just
+     before it and read, with the path's seconds and the device memory
+     still allocated (all of it, after a garbage collection, and the
+     NTT's module-level cache), just after it; a prove given `timings`
+     also logs the peak device memory at each phase's end; the run fails
+     if a kernel the path names was not launched on it (K4's NTT stage
+     form on entry_k10 and the two mesh paths, K5 and K6 on msm_grid, K1
+     and K5 on entry_k10, every other kernel, both forms of K5 and K4's
+     fr_add_sub included, on the other twenty):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -119,6 +123,23 @@ Phases, one line each (the process exits non-zero on any failure):
                       gen_batch's batch hash; a second
                       gen_compression_proof from the proof cache, equal
                       and with no launch;
+     recursion_layer1 the in-circuit EC compression of the k=5 demo's
+                      Poseidon-transcript proof (tests/test_pipeline.py:
+                      40): recursion.pipeline.LayerProver (the card)
+                      .compress proves AggregationSnarksCircuit m=1 at
+                      k=15, k_ext 21; k, k_ext, columns, host, keygen,
+                      prove and verify seconds with the phases, resident
+                      and peak memory; verify_plonk and verify_accumulator
+                      hold; a flipped proof byte is rejected;
+     recursion_fold   the in-circuit fold of two CompressionLayerCircuit
+                      claims over demo proofs (tests/test_fold.py:103):
+                      service.prover.BatchProver.gen_batch_in_circuit on
+                      the card proves AggregationFoldCircuit m=2 at k=15,
+                      k_ext 20, verifies it and checks verify_fold's one
+                      pairing; logs as recursion_layer1; the folded
+                      accumulator with a bent limb fails verify_fold, and
+                      the instance with input limb 3 bent and a flipped
+                      proof byte each fail the verifier;
      testool_k9       the testool golden (plonk/demo.py: the sstoreGas
                       filler of tests/test_testool.py) through
                       testool.run_state_test's mock level, then its prove
@@ -218,6 +239,18 @@ def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def _phase_json(phases: dict) -> str:
+    """A prover's or keygen's `timings` as JSON: each phase's seconds and,
+    where the prover kept them, the peak device memory in GB at each
+    phase's end (since the path's reset: the phase where it first reaches
+    its last value holds the peak)."""
+    out = {k: round(v, 3) for k, v in phases.items() if k != "peak_bytes"}
+    if "peak_bytes" in phases:
+        out["peak_gb"] = {k: round(v / 2**30, 2)
+                          for k, v in phases["peak_bytes"].items()}
+    return json.dumps(out)
 
 
 def _rand_fe(rng, n: int, modulus: int) -> np.ndarray:
@@ -365,6 +398,39 @@ def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
         f"plain {plain_ms:.3f} ms bound {bound:.4f} ms")
     if not ok:
         fails.append("K4 row form mismatch")
+
+    # K4 as Fr's add and sub (crypto/field.py on the card), at the
+    # quotient's shapes: a 2^16-row window against another, and against a
+    # broadcast scalar; the plain version is the 16-bit-limb code.  Adding
+    # and subtracting needs no multiply, so the bytes bound it.
+    n = 1 << 16
+    cs = cf._consts(cf.FIELD_FR, dev)
+    a, b = (torch.as_tensor(_rand_fe(rng, n, F.modulus), device=dev)
+            for _ in range(2))
+    b[5:8] = a[:3]
+
+    def plain(x, y):
+        x, y = cf.to_limbs(x), cf.to_limbs(y)
+        return (cf.from_limbs(cf.add_limbs(x, y, cs)),
+                cf.from_limbs(cf.sub_limbs(x, y, cs)))
+
+    for form, y in (("rows", b), ("scalar", b[9])):
+        got = cf.fr_add_sub_cuda(a, y)
+        want = plain(a, y.expand_as(a))
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        ms = _time_ms(lambda: cf.fr_add_sub_cuda(a, y), 50)
+        plain_ms = _time_ms(lambda: plain(a, y), 3)
+        bound, by = _bound_ms(32 * n + y.numel() + 64 * n, 0)
+        r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 max_abs_err=max(_max_err(g, w) for g, w in zip(got, want)))
+        if form == "rows":
+            rec["fr_add_sub"] = r
+        else:
+            rec["fr_add_sub"]["scalar"] = r
+        log(f"[kernels] K4 fr_add_sub {form} n={n}: match={ok} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.3f} ms bound {bound:.4f} ms")
+        if not ok:
+            fails.append(f"K4 fr_add_sub {form} mismatch")
 
     return rec, fails
 
@@ -578,15 +644,13 @@ def prove_state(dev, log, gpu: str, digests: dict, mesh=None) -> list:
     tag = "mesh state k=16" if mesh is not None else "state k=16"
     r = state_prove_bench(16, device=dev, log=lambda m: None, mesh=mesh)
     digests[tag] = hashlib.sha256(r["proof"]).hexdigest()
-    phases = {k: round(v, 3) for k, v in r["prove_phases"].items()}
-    kphases = {k: round(v, 3) for k, v in r["keygen_phases"].items()}
     log(f"[{tag}] card={gpu!r} srs {r['srs_s']:.2f} s keygen "
         f"{r['keygen_s']:.2f} s prove {r['prove_s']:.2f} s verify "
         f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
         f"sha256={digests[tag]} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
-    log(f"[{tag}] prove phases (s, card={gpu!r}): {json.dumps(phases)}")
-    log(f"[{tag}] keygen phases (s, card={gpu!r}): {json.dumps(kphases)}")
+    log(f"[{tag}] prove phases (s, card={gpu!r}): {_phase_json(r['prove_phases'])}")
+    log(f"[{tag}] keygen phases (s, card={gpu!r}): {_phase_json(r['keygen_phases'])}")
     fails = [] if r["ok"] else [f"{tag} proof did not verify"]
     if mesh is not None and digests[tag] != digests.get("state k=16"):
         fails.append("mesh state k=16 proof differs from the state k=16 proof")
@@ -707,10 +771,8 @@ def prove_keccak_full(dev, log, gpu: str) -> list:
         f"srs {t1 - t0:.2f} s keygen {t2 - t1:.2f} s prove {t3 - t2:.2f} s "
         f"verify {t4 - t3:.2f} s ok={ok} proof_bytes={len(proof)} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
-    log(f"[keccak k={k}] prove phases (s, card={gpu!r}): "
-        f"{json.dumps({k_: round(v, 3) for k_, v in phases.items()})}")
-    log(f"[keccak k={k}] keygen phases (s, card={gpu!r}): "
-        f"{json.dumps({k_: round(v, 3) for k_, v in kphases.items()})}")
+    log(f"[keccak k={k}] prove phases (s, card={gpu!r}): {_phase_json(phases)}")
+    log(f"[keccak k={k}] keygen phases (s, card={gpu!r}): {_phase_json(kphases)}")
     return [] if ok else [f"keccak k={k} proof did not verify"]
 
 
@@ -809,9 +871,9 @@ def prove_evm_full(dev, log, gpu: str) -> list:
         f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
     log(f"[evm k={EVM_K}] prove phases (s, card={gpu!r}): "
-        f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
+        f"{_phase_json(r['prove_phases'])}")
     log(f"[evm k={EVM_K}] keygen phases (s, card={gpu!r}): "
-        f"{json.dumps({k_: round(v, 3) for k_, v in r['keygen_phases'].items()})}")
+        f"{_phase_json(r['keygen_phases'])}")
     fails = [] if r["ok"] else [f"evm k={EVM_K} proof did not verify"]
     if w["rw_fill"] < 0.9:
         fails.append(f"evm k={EVM_K} workload filled {w['rw_fill']:.4f} of the rows")
@@ -921,7 +983,7 @@ def _log_bench(log, gpu: str, name: str, r: dict, resident: float):
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
     for phase in ("prove", "keygen"):
         log(f"[{name} k={k}] {phase} phases (s, card={gpu!r}): "
-            f"{json.dumps({k_: round(v, 3) for k_, v in r[phase + '_phases'].items()})}")
+            f"{_phase_json(r[phase + '_phases'])}")
 
 
 def prove_partners_k16(dev, log, gpu: str) -> list:
@@ -1194,7 +1256,7 @@ def prove_super_full(dev, log, gpu: str, chunk: dict) -> list:
         f"{r['verify_s']:.2f} s ok={r['ok']} proof_bytes={r['proof_bytes']} "
         f"resident_gb={r['resident_gb']:.2f} peak_mem_gb={r['peak_gb']:.2f}")
     log(f"[super k={k}] prove phases (s, card={gpu!r}): "
-        f"{json.dumps({k_: round(v, 3) for k_, v in r['prove_phases'].items()})}")
+        f"{_phase_json(r['prove_phases'])}")
     log(f"[super k={k}] second gen_chunk_proof: {hit['s']:.3f} s "
         f"equal={hit['equal']} launches={hit['launches']}")
     fails = [] if r["ok"] else [f"super k={k} chunk proof did not verify"]
@@ -1324,7 +1386,7 @@ def prove_recursion_k10(dev, log, gpu: str) -> list:
     log(f"[recursion_k10] batch_hash chunks={MAX_AGG_SNARKS} rows={full.rows} "
         f"k={kf} card={gpu!r} setup+keygen {t1 - t0:.2f} s prove {t2 - t1:.2f} s "
         f"verify {t3 - t2:.2f} s ok={ok} proof_bytes={len(proof)} prove phases "
-        f"{json.dumps({k_: round(v, 3) for k_, v in phases.items()})}")
+        f"{_phase_json(phases)}")
     if not ok:
         fails.append(f"recursion_k10: the {MAX_AGG_SNARKS}-chunk batch hash "
                      "proof did not verify")
@@ -1380,7 +1442,7 @@ def prove_recursion_chunk(dev, log, gpu: str, chunk: dict) -> list:
             f"resident_gb={resident:.2f} peak_mem_gb={peak:.2f}")
         for phases in ("keygen_phases", "prove_phases"):
             log(f"[recursion_chunk] {phases.replace('_', ' ')} (s, card={gpu!r}): "
-                f"{json.dumps({k_: round(v, 3) for k_, v in tm[phases].items()})}")
+                f"{_phase_json(tm[phases])}")
         t0 = time.perf_counter()
         ok = lp.verify_compression_proof(key, cproof)
         t1 = time.perf_counter()
@@ -1418,6 +1480,161 @@ def prove_recursion_chunk(dev, log, gpu: str, chunk: dict) -> list:
         fails.append("recursion_chunk: gen_batch returned another batch hash")
     if not equal or launches:
         fails.append("recursion_chunk: the second gen_compression_proof was no cache hit")
+    return fails
+
+
+def _demo_inner(dev, seeds) -> tuple:
+    """The reference tests' inner snarks (tests/test_pipeline.py:26-36,
+    tests/test_fold.py:103): the k=5 DemoCircuit's keys at tau 987654321
+    and its proofs under the Poseidon transcript, one per rng seed."""
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.keygen import keygen
+    from zkevm_circuits_tpu_torch.plonk.prover import prove
+    from zkevm_circuits_tpu_torch.poly.kzg import Srs
+    from zkevm_circuits_tpu_torch.poly.transcript import PoseidonTranscript
+
+    srs = Srs.unsafe_setup(demo.K, tau=demo.GOLDEN_TAU, device=dev)
+    pk, vk = keygen(demo.DemoCircuit(), demo.K, srs, device=dev)
+    return vk, [prove(pk, demo.DemoCircuit(), [[demo.A_IN]], srs,
+                      transcript=PoseidonTranscript(),
+                      rng=np.random.default_rng(seed), device=dev)
+                for seed in seeds]
+
+
+def _layer_stats(cs) -> dict:
+    from zkevm_circuits_tpu_torch.plonk.keygen import quotient_degree
+    from zkevm_circuits_tpu_torch.utils.stats import circuit_stats
+
+    return {**circuit_stats(cs), "quotient_degree": quotient_degree(cs),
+            "logup_inputs": [len(lg.inputs) for lg in cs.logups]}
+
+
+def _log_layer(log, gpu: str, path: str, tm: dict, resident: float, peak: float):
+    log(f"[{path}] card={gpu!r} host circuit {tm['circuit']:.2f} s srs "
+        f"{tm['srs']:.2f} s keygen {tm['keygen']:.2f} s prove {tm['prove']:.2f} s "
+        f"verify {tm['verify']:.2f} s resident_gb={resident:.2f} "
+        f"peak_mem_gb={peak:.2f}")
+    for phases in ("keygen_phases", "prove_phases"):
+        log(f"[{path}] {phases.replace('_', ' ')} (s, card={gpu!r}): "
+            f"{_phase_json(tm[phases])}")
+
+
+def prove_recursion_layer1(dev, log, gpu: str) -> list:
+    """The in-circuit EC compression layer, the twin of
+    tests/test_pipeline.py:40: the k=5 demo's Poseidon-transcript proof
+    (rng seed 3) compressed by recursion/pipeline.py's LayerProver (device
+    None: the card), which proves AggregationSnarksCircuit m=1 (the inner
+    verifier, its Poseidon transcript and the window-shared Straus MSM of
+    its KZG claims, all in-circuit) and checks the proof and the exposed
+    accumulator's one pairing.  Logs k, k_ext, the circuit's columns, the
+    host, SRS, keygen, prove and verify seconds with the phases, resident
+    and peak memory; verify_plonk and verify_accumulator hold again, and
+    the proof with one byte of its last evaluation flipped is rejected."""
+    import dataclasses
+    import tempfile
+
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.recursion.pipeline import LayerProver
+
+    vk, (inner,) = _demo_inner(dev, (3,))
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev) / 2**30
+    tm: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lp = LayerProver(srs_dir=tmp)
+        s1 = lp.compress(vk, inner, [[demo.A_IN]], "layer1_0", timings=tm)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pk, _ = lp._keys[f"layer1_0:k{s1.k}"]
+    log(f"[recursion_layer1] inner demo k={demo.K} proof_bytes={len(inner)}; "
+        f"AggregationSnarksCircuit m={s1.m} k={s1.k} k_ext={pk.k_ext} "
+        f"instance={len(s1.instances[-1])} proof_bytes={len(s1.proof)} "
+        f"shapes={json.dumps(_layer_stats(s1.vk.cs))}")
+    _log_layer(log, gpu, "recursion_layer1", tm, resident, peak)
+    ok, acc = s1.verify_plonk(), s1.verify_accumulator()
+    flipped = dataclasses.replace(s1, proof=_flip(s1.proof, len(s1.proof) - 136))
+    flipped_ok = flipped.verify_plonk()
+    log(f"[recursion_layer1] verify_plonk={ok} verify_accumulator={acc} "
+        f"flipped_byte_verify_plonk={flipped_ok}")
+    fails = []
+    if s1.m != 1 or not (ok and acc):
+        fails.append("recursion_layer1: the compression's verdicts are wrong")
+    if flipped_ok:
+        fails.append("recursion_layer1: a flipped proof byte was accepted")
+    return fails
+
+
+def prove_recursion_fold(dev, log, gpu: str) -> list:
+    """The in-circuit aggregation fold, the twin of tests/test_fold.py:103:
+    two CompressionLayerCircuit claims over the demo's Poseidon-transcript
+    proofs (rng seeds 3 and 5); service/prover.py's BatchProver.
+    gen_batch_in_circuit on a LayerProver of the card proves
+    AggregationFoldCircuit m=2 at its min_k, verifies it and checks the
+    folded accumulator's one pairing (verify_fold).  Logs as
+    recursion_layer1; then the exposed folded accumulator with its first
+    limb bent fails verify_fold (which reads only the last eight limbs),
+    the proof against the instance with limb 3 bent (an input
+    accumulator's: tests/test_fold.py:93-99 bends it for the MockProver)
+    fails the verifier, and so does the proof with one byte of its last
+    evaluation flipped."""
+    import os
+    import tempfile
+
+    from zkevm_circuits_tpu_torch.plonk import demo
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.recursion.aggregation import BatchHash, ChunkHash
+    from zkevm_circuits_tpu_torch.recursion.fold import verify_fold
+    from zkevm_circuits_tpu_torch.recursion.layer import CompressionLayerCircuit
+    from zkevm_circuits_tpu_torch.service.prover import BatchProver, LayerProver
+
+    vk, proofs = _demo_inner(dev, (3, 5))
+    t0 = time.perf_counter()
+    items = []
+    for proof in proofs:
+        layer = CompressionLayerCircuit(vk, proof, [[demo.A_IN]])
+        items.append((layer.claim, layer.instances()[0]))
+    t1 = time.perf_counter()
+    # the state roots chain 0x01.. -> 0x02.. -> 0x04.. (the reference test's
+    # two chunks both go 0x01.. -> 0x02.., which BatchHash rejects)
+    roots = [int.from_bytes(bytes([r]) * 32, "big") for r in (1, 2, 4)]
+    hashes = [ChunkHash(chain_id=1337, prev_state_root=roots[i],
+                        post_state_root=roots[i + 1],
+                        withdraw_root=int.from_bytes(b"\x03" * 32, "big"),
+                        data_hash=int.from_bytes(bytes([7 + i]) * 32, "big"))
+              for i in range(2)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev) / 2**30
+    tm: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        layers = LayerProver(os.path.join(tmp, "params"))
+        rec = BatchProver().gen_batch_in_circuit(layers, items, hashes, vk,
+                                                 timings=tm)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    fp = rec["fold_proof"]
+    pk, vk_f = layers._keys[f"fold_k{fp.k}_m{len(items)}"]
+    log(f"[recursion_fold] two CompressionLayerCircuit claims {t1 - t0:.2f} s; "
+        f"AggregationFoldCircuit m={len(items)} k={fp.k} k_ext={pk.k_ext} "
+        f"instance={len(fp.instances[0])} proof_bytes={len(fp.proof)} "
+        f"shapes={json.dumps(_layer_stats(vk_f.cs))}")
+    _log_layer(log, gpu, "recursion_fold", tm, resident, peak)
+    insts = fp.instances
+    ok = verify(vk_f, insts, fp.proof)
+    folded = verify_fold(vk, insts[0], len(items))
+    bend = lambda at: [[(v + 1) % (1 << 128) if i == at else v  # noqa: E731
+                        for i, v in enumerate(insts[0])]]
+    folded_bent = verify_fold(vk, bend(len(insts[0]) - 8)[0], len(items))
+    limb3_bent = verify(vk_f, bend(3), fp.proof)
+    flipped_ok = verify(vk_f, insts, _flip(fp.proof, len(fp.proof) - 136))
+    batch_ok = (rec["n_chunks"] == 2 and len(rec["folded_acc"]) == 8
+                and rec["batch_pi_hash"] == hex(BatchHash(hashes).pi_hash()))
+    log(f"[recursion_fold] verify={ok} verify_fold={folded} "
+        f"bent_folded_limb_verify_fold={folded_bent} bent_limb3_verify="
+        f"{limb3_bent} flipped_byte_verify={flipped_ok} "
+        f"batch_pi_hash={rec['batch_pi_hash']} record_ok={batch_ok}")
+    fails = []
+    if not (ok and folded and batch_ok):
+        fails.append("recursion_fold: the fold's verdicts or record are wrong")
+    if folded_bent or limb3_bent or flipped_ok:
+        fails.append("recursion_fold: a bent limb or a flipped byte was accepted")
     return fails
 
 
@@ -1555,6 +1772,9 @@ KERNELS = [
      "zkevm_circuits_tpu/ops/pallas_field.py:273"),
     ("K4", "butterfly_stage", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:213"),
+    # K4's first stage with twiddle 1 as Fr's add and sub (crypto/field.py)
+    ("K4", "fr_add_sub", "zkevm_circuits_tpu_torch/csrc/field.cu",
+     "zkevm_circuits_tpu/ops/pallas_field.py:213"),
     ("K5", "g1_add", "zkevm_circuits_tpu_torch/csrc/curve.cu",
      "zkevm_circuits_tpu/ops/pallas_curve.py:336"),
     ("K5", "g1_bucket_add", "zkevm_circuits_tpu_torch/csrc/curve.cu",
@@ -1562,6 +1782,25 @@ KERNELS = [
     ("K6", "g1_double", "zkevm_circuits_tpu_torch/csrc/curve.cu",
      "zkevm_circuits_tpu/ops/pallas_curve.py:359"),
 ]
+
+
+def _resident(dev) -> dict:
+    """What stays allocated on the card between paths, in GB: all of it,
+    what is left after a garbage collection, and the NTT's module-level
+    cache (poly/ntt_mxu.py::_DEVICE_CACHE: the DFT pass matrices, "pass",
+    and twiddle tables, "tw"), which lives as long as the process."""
+    import gc
+
+    from zkevm_circuits_tpu_torch.poly import ntt_mxu
+
+    out = {"allocated": torch.cuda.memory_allocated(dev)}
+    gc.collect()
+    out["after_gc"] = torch.cuda.memory_allocated(dev)
+    for key, v in ntt_mxu._DEVICE_CACHE.items():
+        tensors = v if isinstance(v, tuple) else (v,)
+        name = f"ntt_mxu_{key[0]}"
+        out[name] = out.get(name, 0) + sum(t.numel() * t.element_size() for t in tensors)
+    return {k: round(v / 2**30, 2) for k, v in out.items()}
 
 
 def main() -> int:
@@ -1599,11 +1838,13 @@ def main() -> int:
         paths[path] = dict(cf.LAUNCHES)
         log(f"[launches] {path}: {json.dumps(paths[path])} "
             f"({time.perf_counter() - t:.1f} s)")
+        log(f"[resident] after {path} (GB, card={gpu!r}): "
+            f"{json.dumps(_resident(dev))}")
         for kid, name, _, _ in KERNELS:
-            if kid in kids and paths[path][name] == 0:
+            if (kid in kids or name in kids) and paths[path][name] == 0:
                 fails.append(f"{kid} {name} was not launched on {path}")
 
-    single = ("K1", "K2", "K3", "K5", "K6")
+    single = ("K1", "K2", "K3", "fr_add_sub", "K5", "K6")
     drive_path("demo_k5", lambda: prove_demo(dev, log), single)
     drive_path("keccak_k9", lambda: prove_keccak_k9(dev, log), single)
     drive_path("state_k16", lambda: prove_state(dev, log, gpu, digests), single)
@@ -1627,15 +1868,19 @@ def main() -> int:
     drive_path("recursion_chunk",
                lambda: prove_recursion_chunk(dev, log, gpu, chunk), single)
     chunk.clear()
+    drive_path("recursion_layer1",
+               lambda: prove_recursion_layer1(dev, log, gpu), single)
+    drive_path("recursion_fold", lambda: prove_recursion_fold(dev, log, gpu), single)
     drive_path("testool_k9", lambda: prove_testool_k9(dev, log), single)
     drive_path("msm_grid", lambda: check_msm_grid(dev, log, gpu), ("K5", "K6"))
     # before the mesh paths: the dry run makes its own process group
-    drive_path("entry_k10", lambda: run_entry(dev, log), ("K1", "K4", "K5"))
+    drive_path("entry_k10", lambda: run_entry(dev, log),
+               ("K1", "butterfly_stage", "K5"))
     # the sharded prover on an NCCL group of one rank (one card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         group = dist.group.WORLD
-        every = single + ("K4",)
+        every = single + ("butterfly_stage",)
         drive_path("mesh_demo_k5", lambda: prove_demo(dev, log, group), every)
         drive_path("mesh_state_k16",
                    lambda: prove_state(dev, log, gpu, digests, group), every)
@@ -1644,7 +1889,8 @@ def main() -> int:
     kernels = []
     for kid, name, source, replaces in KERNELS:
         r = rec[name]
-        main = "mesh_state_k16" if kid == "K4" else f"keccak_k{KECCAK_K}"
+        main = ("mesh_state_k16" if name == "butterfly_stage"
+                else f"keccak_k{KECCAK_K}")
         # the record's other shapes and forms (K4's row form and 64
         # columns, K5's other modes, K6's Horner shape and times=8)
         extra = {k: v for k, v in r.items() if isinstance(v, dict)}

@@ -62,6 +62,22 @@ def test_add_sub(name, op):
     assert np.array_equal(getattr(T, op)(_t(a), _t(b)).numpy(), want)
 
 
+@pytest.mark.parametrize("bshape", [(64,), (), (4, 1)])
+def test_fr_add_sub_through_k4_plain_stage(bshape):
+    """K4's first stage with twiddle 1 over the pairs (a, b), Fr's add and
+    sub on the card, in its plain version: the reference's add and sub,
+    broadcast either way, with 0, 1 and p - 1 among the rows."""
+    J, _ = _fields("fr")
+    a = _vals(J, 11, 64)
+    b = _vals(J, 12, 64)[::-1].copy()[:int(np.prod(bshape))].reshape(*bshape, 32)
+    a2 = a.reshape(4, 16, 32) if len(bshape) == 2 else a
+    for x, y in ((a2, b), (b, a2)):
+        got = cf.fr_add_sub_plain(_t(x), _t(y))
+        assert np.array_equal(got[0].numpy(), np.asarray(J.add(x, y)))
+        assert np.array_equal(got[1].numpy(), np.asarray(J.sub(x, y)))
+    assert cf.fr_add_sub_plain(_t(a[:0]), _t(a[:0]))[0].shape == (0, 32)
+
+
 @pytest.mark.parametrize("name", FIELDS)
 def test_neg_square_mont_roundtrip(name):
     J, T = _fields(name)

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, byte for byte (K5's three modes, its warp vote and
+version on the card, byte for byte (K4 also as Fr's add and sub; K5's
+three modes, its warp vote and
 its bucket-step form, K6 once and eight times), the sharded ops on an
 NCCL group of one rank against the unsharded ones, the MSM's K6 launch
 count, and the k=5 demo, k=9 Keccak and k=9 EVM golden proofs on the
@@ -86,6 +87,30 @@ def test_k4_kernel_matches_plain(dev):
         half = 1 << (s - 1)
         tw = torch.as_tensor(_rand_fe(12 + s, max(3, half), p)[:half], device=dev)
         assert torch.equal(cf.dit_stage(x, tw, s), cf.dit_stage_plain(x, tw, s)), s
+
+
+def test_fr_add_sub_on_card_are_one_k4_launch(dev):
+    """Fr's add, sub and neg on CUDA tensors (one K4 launch each: the first
+    DIT stage with twiddle 1, counted as "fr_add_sub" and not as an NTT
+    stage) equal the limb arithmetic on the same rows, with 0, 1 and p - 1
+    among them, broadcast either way."""
+    F = fr()
+    a = torch.as_tensor(_rand_fe(21, 4096, F.modulus), device=dev)
+    b = torch.as_tensor(_rand_fe(22, 4096, F.modulus), device=dev)
+    b[5:8] = a[:3]
+    cs = cf._consts(cf.FIELD_FR, dev)
+    lim = cf.to_limbs
+    for x, y in ((a, b), (a, b[2]), (a[1], b), (a.reshape(64, 64, 32), b[:64, None])):
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+        xe, ye = x.expand(shape), y.expand(shape)
+        before = dict(cf.LAUNCHES)
+        got_add, got_sub = F.add(x, y), F.sub(x, y)
+        assert cf.LAUNCHES == {**before, "fr_add_sub": before["fr_add_sub"] + 2}
+        assert torch.equal(got_add, cf.from_limbs(cf.add_limbs(lim(xe), lim(ye), cs)))
+        assert torch.equal(got_sub, cf.from_limbs(cf.sub_limbs(lim(xe), lim(ye), cs)))
+    zero = torch.zeros_like(a)
+    assert torch.equal(F.neg(a), cf.from_limbs(cf.sub_limbs(lim(zero), lim(a), cs)))
+    assert F.add(a[:0], b[:0]).shape == (0, 32)
 
 
 @pytest.fixture

@@ -108,12 +108,18 @@ class Fp:
         return cf._consts(self.field_id, device)
 
     def add(self, a, b):
+        """a + b; Fr on CUDA tensors: one K4 launch (fr_add_sub_cuda)."""
         a, b = _pair(a, b)
+        if a.is_cuda and self.field_id == cf.FIELD_FR:
+            return cf.fr_add_sub_cuda(a, b)[0]
         cs = self._cs(a.device)
         return cf.from_limbs(cf.add_limbs(cf.to_limbs(a), cf.to_limbs(b), cs))
 
     def sub(self, a, b):
+        """a - b; Fr on CUDA tensors: one K4 launch (fr_add_sub_cuda)."""
         a, b = _pair(a, b)
+        if a.is_cuda and self.field_id == cf.FIELD_FR:
+            return cf.fr_add_sub_cuda(a, b)[1]
         cs = self._cs(a.device)
         return cf.from_limbs(cf.sub_limbs(cf.to_limbs(a), cf.to_limbs(b), cs))
 

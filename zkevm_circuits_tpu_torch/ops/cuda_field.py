@@ -32,8 +32,8 @@ RED_LIMBS = 17  # the NTT's wide REDC divides by 2^272 = 2^(16 * 17)
 
 # kernel launches, counted where each wrapper launches its kernel
 LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0,
-            "butterfly_stage": 0, "g1_add": 0, "g1_bucket_add": 0,
-            "g1_double": 0}
+            "butterfly_stage": 0, "fr_add_sub": 0, "g1_add": 0,
+            "g1_bucket_add": 0, "g1_double": 0}
 
 
 def reset_launches() -> None:
@@ -305,6 +305,43 @@ def butterfly_stage(lo: torch.Tensor, hi: torch.Tensor,
     return butterfly_stage_plain(lo, hi, tw)
 
 
+@functools.cache
+def _fr_one_row(device: torch.device) -> torch.Tensor:
+    """(1, 32): Montgomery 1 of Fr, the twiddle of a DIT ladder's first
+    stage."""
+    one = (1 << 256) % FR_MODULUS
+    return torch.tensor([list(one.to_bytes(32, "little"))], dtype=torch.uint8,
+                        device=device)
+
+
+def _fr_add_sub(a: torch.Tensor, b: torch.Tensor, stage):
+    """(a + b, a - b) over Fr for canonical rows, broadcast, from one
+    first DIT stage `stage(x, tw)` with twiddle 1 over the interleaved
+    pairs (a, b): (a + b * 1, a - b * 1), the values of add_limbs and
+    sub_limbs."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if not shape.numel():
+        return torch.empty(shape, dtype=torch.uint8, device=a.device), \
+            torch.empty(shape, dtype=torch.uint8, device=a.device)
+    pairs = torch.stack([a.expand(shape), b.expand(shape)], dim=-2)
+    out = stage(pairs.reshape(-1, 2, 32), _fr_one_row(a.device))
+    return (out[:, 0].contiguous().reshape(shape),
+            out[:, 1].contiguous().reshape(shape))
+
+
+def fr_add_sub_cuda(a: torch.Tensor, b: torch.Tensor):
+    """(a + b, a - b) over Fr for canonical CUDA rows in one K4 launch,
+    counted as "fr_add_sub" (not as an NTT stage), where add_limbs and
+    sub_limbs take about fifty launches each."""
+    return _fr_add_sub(a, b, lambda x, tw: _dit_stage_launch(x, tw, 1, "fr_add_sub"))
+
+
+def fr_add_sub_plain(a: torch.Tensor, b: torch.Tensor):
+    """Plain version of fr_add_sub_cuda: the same pairs through K4's plain
+    stage."""
+    return _fr_add_sub(a, b, lambda x, tw: dit_stage_plain(x, tw, 1))
+
+
 def _stage_shape(x: torch.Tensor, tw: torch.Tensor, s: int) -> int:
     """log2 of the transform length; raises on a shape the stage cannot take."""
     n = x.shape[-2] if x.dim() >= 2 else 0
@@ -328,8 +365,9 @@ def dit_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([out_lo, out_hi], dim=-2).reshape(x.shape)
 
 
-def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
-    """K4's stage form on the card: one launch over the whole batch."""
+def _dit_stage_launch(x: torch.Tensor, tw: torch.Tensor, s: int,
+                      counter: str) -> torch.Tensor:
+    """One launch of K4's stage form, counted under `counter`."""
     log_n = _stage_shape(x, tw, s)
     x, tw = x.contiguous(), tw.contiguous()
     _check_rows(x, "dit_stage x")
@@ -337,9 +375,14 @@ def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     out = torch.empty_like(x)
     build.check(build.lib().zk_dit_stage(
         x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.numel() // 64, log_n, s,
-        _stream()), "butterfly_stage")
-    LAUNCHES["butterfly_stage"] += 1
+        _stream()), counter)
+    LAUNCHES[counter] += 1
     return out
+
+
+def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """K4's stage form on the card: one launch over the whole batch."""
+    return _dit_stage_launch(x, tw, s, "butterfly_stage")
 
 
 def dit_stage(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:

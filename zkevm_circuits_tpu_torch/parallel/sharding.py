@@ -98,7 +98,8 @@ class ProverMesh:
     """Process-group execution context for `plonk.prover.prove(mesh=...)`.
 
     Replaces the prover's hot primitives with row-sharded versions:
-      * iNTT at k and coset NTT / iNTT at k_ext (`poly.ntt.make_sharded_ntt`)
+      * NTT / iNTT at k and coset NTT / iNTT at k_ext
+        (`poly.ntt.make_sharded_ntt`)
       * column commitments: per-rank partial MSM + all_gather tree sum
       * permutation / lookup grand products and the logUp running sum:
         two-level scans
@@ -115,6 +116,7 @@ class ProverMesh:
         assert D & (D - 1) == 0, f"the rank count must be a power of two (D={D})"
         assert (1 << k) // D >= D, f"four-step layout needs n/D >= D (k={k}, D={D})"
         self.group, self.k, self.k_ext = group, k, k_ext
+        self._ntt_k = make_sharded_ntt(group, k)
         self._intt_k = make_sharded_ntt(group, k, inverse=True)
         self._ntt_ext = make_sharded_ntt(group, k_ext)
         self._intt_ext = make_sharded_ntt(group, k_ext, inverse=True)
@@ -127,6 +129,10 @@ class ProverMesh:
         self._commit = make_sharded_commit(group)
 
     # -- transforms -------------------------------------------------------
+    def ntt(self, x, k: int | None = None):
+        assert k is None or k == self.k
+        return self._ntt_k(x)
+
     def intt(self, x, k: int | None = None):
         assert k is None or k == self.k
         return self._intt_k(x)

@@ -1,11 +1,12 @@
 """PLONK prover (port of zkevm_circuits_tpu/plonk/prover.py, with the
-chunked quotient).
+quotient evaluated one group of sub-cosets at a time).
 
 Protocol, transcript order and blinding are the reference's, so for the
 same SRS, keys and `rng` the proof bytes are the reference's:
   witness columns (eval form) -> iNTT -> MSM commit
   lookup permuted columns / grand products -> host sort, device scans
-  quotient -> y-folded constraint groups over chunks of the extended coset
+  quotient -> y-folded constraint groups, pass by pass over sub-cosets of
+              the extended coset (only h is held at its size)
   multiopen -> SHPLONK (poly/kzg.py)
 Commitments written back to back (no challenge squeezed between them) are
 computed by one multi-column MSM and written in the reference's order.
@@ -20,11 +21,11 @@ import numpy as np
 import torch
 
 from ..crypto.field import fr
-from ..crypto.params import FR_MODULUS as R
+from ..crypto.params import FR_GENERATOR, FR_MODULUS as R
 from ..device import resolve
 from ..poly.domain import domain
 from ..poly.kzg import Query, Srs, eval_batch, shplonk_open
-from ..poly.ntt import coset_intt, coset_ntt, intt
+from ..poly.ntt import coset_intt, intt, ntt
 from ..poly.transcript import Blake2bTranscript, PoseidonTranscript
 from .circuit import Circuit, ConstraintSystem, usable_rows
 from .expression import Evaluator, PreRolledEvaluator
@@ -32,12 +33,13 @@ from .keygen import ProvingKey
 
 F = fr()
 
-QUOTIENT_CHUNK = 1 << 16  # rows of the extended coset per quotient pass
+QUOTIENT_CHUNK = 1 << 16  # extended-coset rows per quotient expression walk
 GATE_BATCH = 48  # gate polys per y-folded constraint group
-# columns per extended-coset transform: the transform's scratch is a few
-# copies of its input, so wide circuits (Keccak: 658 advice columns, 11 GB
-# of extended advice at k=16) transform in batches into one output
+# columns per transform call of the quotient's passes: a transform's
+# scratch is a few copies of its input, so wide circuits (Keccak: 658
+# advice columns) transform in batches into one output
 EXT_BATCH = 64
+LOGUP_INV_SLICE = 64  # logUp inputs per batch inversion
 
 
 def _host(a) -> np.ndarray:
@@ -117,6 +119,19 @@ def _logup_multiplicities(name: str, t_u: torch.Tensor, a_u: torch.Tensor,
     return torch.bincount(mapped, minlength=n)
 
 
+def _logup_inverses(a: torch.Tensor, beta_m, row_lt_u) -> torch.Tensor:
+    """(inputs, n, 32): 1 / (a_j + beta) on the rows where `row_lt_u`
+    holds, 0 elsewhere, for each input j of the stacked `a`: one batch
+    inversion along the rows for each LOGUP_INV_SLICE inputs, so its
+    scratch stays a few slices, whatever the input count."""
+    zeros_n = F.zeros((a.shape[1],), a.device)
+    hs = torch.empty_like(a)
+    for s_ in range(0, a.shape[0], LOGUP_INV_SLICE):
+        inv = F.batch_inv(F.add(a[s_:s_ + LOGUP_INV_SLICE], beta_m), axis=1)
+        hs[s_:s_ + LOGUP_INV_SLICE] = F.select(row_lt_u, inv, zeros_n)
+    return hs
+
+
 def _sum_rows(x: torch.Tensor) -> torch.Tensor:
     """The field sum over the first axis of (m, n, 32), pairwise."""
     while x.shape[0] > 1:
@@ -179,17 +194,23 @@ def prove(
 ) -> bytes:
     """Proof bytes for `circuit` under `pk`.  The proof is a function of
     `rng` (blinding rows are drawn from it in the reference's order).
-    `timings`, when a dict, gets the seconds of each prover phase.
+    `timings`, when a dict, gets the seconds of each prover phase (the
+    card is synchronized at each phase's end only then) and, on the card,
+    "peak_bytes": {phase: torch.cuda.max_memory_allocated at the phase's
+    end}, the peak since the caller's last reset of the statistics, which
+    prove leaves alone: the phase whose entry first rises to the last one
+    is where the peak was reached.
 
     When `mesh` (a torch.distributed process group) is given, every rank
     calls prove with the same arguments, and the hot polynomial passes
-    (iNTT at k, coset NTT / iNTT at k_ext, column commitments, grand-product
-    and running-sum scans) run row-sharded over its ranks
+    (NTT / iNTT at k, the coset iNTT at k_ext, column commitments,
+    grand-product and running-sum scans) run row-sharded over its ranks
     (parallel/sharding.ProverMesh); the proof bytes equal the single-device
     path's for the same rng.  Its backend must suit `device` (NCCL with
-    CUDA, gloo with the CPU).  The quotient stays `_quotient_chunked` on
-    every rank, where the reference's mesh path runs its quotient body as
-    one jit: the same field values, so the same bytes."""
+    CUDA, gloo with the CPU).  The quotient's passes run on every rank,
+    their size-n transforms sharded, where the reference's mesh path runs
+    its quotient body as one jit: the same field values, so the same
+    bytes."""
     dev = resolve(device)
     if mesh is not None:
         from ..parallel.sharding import check_backend
@@ -201,7 +222,6 @@ def prove(
     k, n = pk.k, pk.n
     k_ext = pk.k_ext
     n_ext = 1 << k_ext
-    rot_scale = 1 << (k_ext - k)
     u = usable_rows(n)
     dom = domain(k)
     t = transcript or Blake2bTranscript()
@@ -210,12 +230,15 @@ def prove(
     )
     blind = _make_blinder(u, n, rng, dev)
     marks = timings if timings is not None else {}
+    on_card = timings is not None and dev.type == "cuda"
+    peaks = marks.setdefault("peak_bytes", {}) if on_card else None
     t0 = time.perf_counter()
 
     def _mark(stage: str):
         nonlocal t0
-        if dev.type == "cuda":
+        if on_card:
             torch.cuda.synchronize(dev)
+            peaks[stage] = torch.cuda.max_memory_allocated(dev)
         now = time.perf_counter()
         marks[stage] = marks.get(stage, 0.0) + now - t0
         t0 = now
@@ -225,16 +248,15 @@ def prove(
         from ..parallel.sharding import ProverMesh
 
         pm = ProverMesh(mesh, k, k_ext, srs)
-        intt_k = pm.intt
+        ntt_k, intt_k = pm.ntt, pm.intt
         commit_many = pm.commit_many
-        coset_ntt_ext = pm.coset_ntt_ext
         coset_intt_ext = pm.coset_intt_ext
         prefix_prod = pm.exclusive_prefix_product
         prefix_sum = pm.exclusive_prefix_sum
     else:
+        ntt_k = lambda x: ntt(x, k)  # noqa: E731
         intt_k = lambda x: intt(x, k)  # noqa: E731
         commit_many = srs.commit_many
-        coset_ntt_ext = lambda x: coset_ntt(x, k_ext)  # noqa: E731
         coset_intt_ext = lambda x: coset_intt(x, k_ext)  # noqa: E731
         prefix_prod = _exclusive_prefix_product
         prefix_sum = _exclusive_prefix_sum
@@ -362,19 +384,17 @@ def prove(
     row_lt_u = torch.arange(n, device=dev) < u
     zeros_n = F.zeros((n,), dev)
     for ld in logup_data:
-        # every input's inverses in one batch inversion along the rows
-        hs = F.select(row_lt_u, F.batch_inv(F.add(ld["a"], beta_m), axis=1),
-                      zeros_n)
-        t_inv = F.batch_inv(F.add(ld["t"], beta_m), axis=0)
-        h_t = F.select(row_lt_u, F.mul(ld["m"], t_inv), zeros_n)
+        hs = _logup_inverses(ld.pop("a"), beta_m, row_lt_u)
+        t_inv = F.batch_inv(F.add(ld.pop("t"), beta_m), axis=0)
+        h_t = F.select(row_lt_u, F.mul(ld.pop("m"), t_inv), zeros_n)
         # phi[0] = 0; phi[i+1] = phi[i] + sum_j h_j[i] - h_t[i]
-        delta = F.sub(_sum_rows(hs), h_t)
-        phi = prefix_sum(delta)
-        hs = [blind(h) for h in hs.unbind(0)]
+        phi = prefix_sum(F.sub(_sum_rows(hs), h_t))
+        for j in range(hs.shape[0]):  # blinded in place, in the reference's order
+            hs[j] = blind(hs[j])
         h_t = blind(h_t)
         phi = blind(phi, u + 1)
-        ld["hs"], ld["h_t"], ld["phi"] = hs, h_t, phi
-        ld["h_coeffs"] = list(intt_k(torch.stack(hs)).unbind(0)) if hs else []
+        ld["h_coeffs"] = list(intt_k(hs).unbind(0)) if len(hs) else []
+        del hs
         ld["h_t_coeffs"] = intt_k(h_t)
         ld["phi_coeffs"] = intt_k(phi)
         to_commit += ld["h_coeffs"] + [ld["h_t_coeffs"], ld["phi_coeffs"]]
@@ -384,39 +404,24 @@ def prove(
     y = t.squeeze_challenge()
     y_m = F.scalar(y, dev)
 
-    # ---- quotient on the extended coset ------------------------------------------------
-    def to_ext(coeffs):
-        if coeffs.ndim == 3 and coeffs.shape[0] > EXT_BATCH:
-            out = coeffs.new_empty(coeffs.shape[0], n_ext, 32)
-            for s_ in range(0, coeffs.shape[0], EXT_BATCH):
-                out[s_:s_ + EXT_BATCH] = to_ext(coeffs[s_:s_ + EXT_BATCH])
-            return out
-        pad = coeffs.new_zeros(*coeffs.shape[:-2], n_ext - n, 32)
-        return coset_ntt_ext(torch.cat([coeffs, pad], dim=-2))
+    # ---- quotient, one group of sub-cosets at a time -----------------------------
+    # every per-proof column, as coefficients, by group
+    polys = {"advice": advice_coeffs, "instance": instance_coeffs}
+    if perm_cols:
+        polys["zp"] = z_perm_coeffs[None]
+    for i, ld in enumerate(lookup_data):
+        polys[f"lk{i}"] = [ld["ap_coeffs"], ld["sp_coeffs"], ld["z_coeffs"]]
+    for i, ld in enumerate(logup_data):
+        polys[f"lg{i}"] = ld["h_coeffs"] + [ld["h_t_coeffs"], ld["m_coeffs"],
+                                            ld["phi_coeffs"]]
 
-    advice_ext = to_ext(advice_coeffs)
-    instance_ext = to_ext(instance_coeffs)
-    z_perm_ext = to_ext(z_perm_coeffs) if perm_cols else None
-    lookups_ext = [
-        dict(ap=to_ext(ld["ap_coeffs"]), sp=to_ext(ld["sp_coeffs"]),
-             z=to_ext(ld["z_coeffs"]))
-        for ld in lookup_data
-    ]
-    logups_ext = []
-    for ld in logup_data:
-        hs_ext = (list(to_ext(torch.stack(ld["h_coeffs"])).unbind(0))
-                  if ld["h_coeffs"] else [])
-        logups_ext.append(dict(hs=hs_ext, ht=to_ext(ld["h_t_coeffs"]),
-                               m=to_ext(ld["m_coeffs"]),
-                               phi=to_ext(ld["phi_coeffs"])))
-    _mark("extended transforms")
+    def pass_evals(name, j0, b):
+        return _sub_coset_ntt(polys[name], k, k_ext, j0, b, ntt_k)
 
-    h_ext = _quotient_chunked(
-        cs, pk, challenges, advice_ext, instance_ext, z_perm_ext, lookups_ext,
-        logups_ext, F.scalar(theta, dev), beta_m, gamma_m, y_m, y, rot_scale,
-        n_ext, dev,
+    h_ext = _quotient_passes(
+        cs, pk, challenges, pass_evals, list(polys), F.scalar(theta, dev),
+        beta_m, gamma_m, y_m, y, _mark, dev,
     )
-    _mark("quotient")
 
     h_coeffs = coset_intt_ext(h_ext)
     n_pieces = n_ext // n
@@ -500,56 +505,62 @@ def prove(
     return bytes(t.proof)
 
 
-def _quotient_chunked(cs, pk, challenges, advice_ext, instance_ext, z_perm_ext,
-                      lookups_ext, logups_ext, theta_m, beta_m, gamma_m, y_m,
-                      y_int, rot_scale, n_ext, dev):
-    """The y-folded constraint fold over the extended coset, chunk by
-    chunk.  Rotations are resolved as wrapping row windows, so each
-    constraint group is elementwise over one chunk; groups combine as
-    acc = acc * y^|g| + g, exactly the flat fold the verifier recomputes."""
-    chunk = min(n_ext, QUOTIENT_CHUNK)
-    nchunks = n_ext // chunk
+def _sub_cosets(arr, n: int, j0: int, b: int):
+    """Sub-cosets j0 .. j0+b-1 of extended-coset evaluations (..., n_ext,
+    32): extended index i = j + R t holds sub-coset j's row t, so this is
+    a strided (..., b, n, 32) view."""
+    r_ = arr.shape[-2] // n
+    return arr.unflatten(-2, (n, r_))[..., j0:j0 + b, :].transpose(-3, -2)
+
+
+def _sub_coset_ntt(cols, k: int, k_ext: int, j0: int, b: int, ntt_k):
+    """(m, b, n, 32) evaluations of the m coefficient columns `cols` (a
+    tensor or a list, degree < n) on sub-cosets j0 .. j0+b-1 of the
+    extended coset: sub-coset j is H shifted by g w_ext^j, so each is a
+    size-n NTT (`ntt_k`) of the coefficients scaled by (g w_ext^j)^i."""
+    n = 1 << k
+    dev = cols[0].device
+    w_ext = domain(k_ext).omega
+    scale = torch.stack([
+        F.power_table(FR_GENERATOR * pow(w_ext, j, R) % R, n, dev)
+        for j in range(j0, j0 + b)])
+    out = torch.empty((len(cols), b, n, 32), dtype=torch.uint8, device=dev)
+    for s_ in range(0, len(cols), EXT_BATCH):
+        c = cols[s_:s_ + EXT_BATCH]
+        c = c if isinstance(c, torch.Tensor) else torch.stack(c)
+        out[s_:s_ + len(c)] = ntt_k(F.mul(c[:, None], scale[None]))
+    return out
+
+
+def _quotient_passes(cs, pk, challenges, pass_evals, names, theta_m, beta_m,
+                     gamma_m, y_m, y_int, mark, dev):
+    """h = (the y-folded constraints) / (X^n - 1) on the extended coset,
+    evaluated one pass of b consecutive sub-cosets at a time (b n about
+    QUOTIENT_CHUNK rows; b = 1 above that, and then the pass is walked in
+    windows of QUOTIENT_CHUNK rows, so the expression walks are as many
+    as the extended coset has QUOTIENT_CHUNK-row chunks).
+    pass_evals(name, j0, b) gives the (m, b, n, 32) evaluations of the
+    per-proof group `name` on the pass's sub-cosets; the key's extended
+    columns are read as strided views.  A rotation by r is a shift by r
+    along each sub-coset's rows, wrapping, so each constraint group is
+    elementwise over a window; groups combine as acc = acc * y^|g| + g,
+    exactly the flat fold the verifier recomputes.  Only h is held at the
+    extended size; `mark` closes the "extended transforms" and "quotient"
+    phases of each pass."""
+    n, n_ext = pk.n, 1 << pk.k_ext
+    rot_scale = n_ext // n
+    b = min(rot_scale, max(1, QUOTIENT_CHUNK // n))
+    rows = min(n, QUOTIENT_CHUNK)  # of each sub-coset, per expression walk
+    chunk = b * rows
     perm_cols = cs.perm_columns
-    src = {"fixed": pk.fixed_ext, "advice": advice_ext, "instance": instance_ext}
     queries = sorted(
         {(k_, c_, r_) for (k_, c_, r_) in cs.all_queries()
          if k_ in ("fixed", "advice", "instance")}
         | {(kind, col, 0) for (kind, col) in perm_cols}
     )
-    # aux sources: (name, tensor, shift): the body sees rows
-    # [start + shift, start + shift + chunk), i.e. torch.roll(arr, -shift)
-    aux_src = [
-        ("l0", pk.l0_ext, 0), ("llast", pk.llast_ext, 0),
-        ("lactive", pk.lactive_ext, 0), ("x", pk.x_ext, 0),
-        ("tinv", pk.t_inv_ext, 0),
-    ]
-    for ci in range(len(perm_cols)):
-        aux_src.append((f"sigma{ci}", pk.sigma_ext[ci], 0))
-    if perm_cols:
-        aux_src += [("zp", z_perm_ext, 0), ("zp_w", z_perm_ext, rot_scale)]
-    for i, lde in enumerate(lookups_ext):
-        aux_src += [
-            (f"lk{i}_ap", lde["ap"], 0), (f"lk{i}_ap_prev", lde["ap"], -rot_scale),
-            (f"lk{i}_sp", lde["sp"], 0),
-            (f"lk{i}_z", lde["z"], 0), (f"lk{i}_z_w", lde["z"], rot_scale),
-        ]
-    for i, lde in enumerate(logups_ext):
-        for j, h in enumerate(lde["hs"]):
-            aux_src.append((f"lg{i}_h{j}", h, 0))
-        aux_src += [
-            (f"lg{i}_ht", lde["ht"], 0), (f"lg{i}_m", lde["m"], 0),
-            (f"lg{i}_phi", lde["phi"], 0), (f"lg{i}_phi_w", lde["phi"], rot_scale),
-        ]
     delta_m = [F.scalar(d, dev) for d in pk.delta_pows]
     one_s = F.ones_mont((), dev)
     shape = (chunk, 32)
-
-    def _win(arr, shift, start):
-        st = (start + shift) % n_ext
-        if st + chunk <= n_ext:
-            return arr[st:st + chunk]
-        head = arr[st:]
-        return torch.cat([head, arr[: chunk - head.shape[0]]])
 
     def _fold(cvals_list):
         acc = None
@@ -641,19 +652,57 @@ def _quotient_chunked(cs, pk, challenges, advice_ext, instance_ext, z_perm_ext,
     for i, lg in enumerate(cs.logups):
         groups.append(logup_group(i, lg))
 
-    pieces = []
-    for cidx in range(nchunks):
-        start = cidx * chunk
-        qc = {(k_, c_, r_): _win(src[k_][c_], r_ * rot_scale, start)
-              for (k_, c_, r_) in queries}
-        auxc = {name: _win(arr, shift, start) for name, arr, shift in aux_src}
-        acc = None
-        for fn, cnt in groups:
-            contrib = fn(qc, auxc)
-            if acc is None:
-                acc = contrib
-            else:
-                yp = F.scalar(pow(y_int, cnt, R), dev)
-                acc = F.add(F.mul(acc, yp), contrib)
-        pieces.append(F.mul(acc, auxc["tinv"]))
-    return torch.cat(pieces, dim=0)
+    h_ext = torch.empty((n_ext, 32), dtype=torch.uint8, device=dev)
+    h_view = h_ext.view(n, rot_scale, 32)  # [t, j]: index j + R t
+    for j0 in range(0, rot_scale, b):
+        ev = {name: pass_evals(name, j0, b) for name in names}
+        mark("extended transforms")
+        key = lambda arr: _sub_cosets(arr, n, j0, b)  # noqa: E731
+        src = {"fixed": key(pk.fixed_ext), "advice": ev["advice"],
+               "instance": ev["instance"]}
+        for t0 in range(0, n, rows):
+            def win(x, rot=0):
+                """Rows t0 + rot .. of each (b, n, 32) sub-coset, wrapping,
+                as (b rows, 32)."""
+                st = (t0 + rot) % n
+                if st + rows <= n:
+                    w = x[:, st:st + rows]
+                else:
+                    w = torch.cat([x[:, st:], x[:, :rows - (n - st)]], dim=1)
+                return w.reshape(chunk, 32)
+
+            qc = {(k_, c_, r_): win(src[k_][c_], r_) for (k_, c_, r_) in queries}
+            auxc = {name: win(key(arr)) for name, arr in (
+                ("l0", pk.l0_ext), ("llast", pk.llast_ext),
+                ("lactive", pk.lactive_ext), ("x", pk.x_ext),
+                ("tinv", pk.t_inv_ext))}
+            for ci in range(len(perm_cols)):
+                auxc[f"sigma{ci}"] = win(key(pk.sigma_ext[ci]))
+            if perm_cols:
+                auxc["zp"], auxc["zp_w"] = win(ev["zp"][0]), win(ev["zp"][0], 1)
+            for i in range(len(cs.lookups)):
+                ap, sp, z = ev[f"lk{i}"]
+                auxc.update({f"lk{i}_ap": win(ap), f"lk{i}_ap_prev": win(ap, -1),
+                             f"lk{i}_sp": win(sp), f"lk{i}_z": win(z),
+                             f"lk{i}_z_w": win(z, 1)})
+            for i, lg in enumerate(cs.logups):
+                cols = ev[f"lg{i}"]
+                for j in range(len(lg.inputs)):
+                    auxc[f"lg{i}_h{j}"] = win(cols[j])
+                ht, m_, phi = cols[-3:]
+                auxc.update({f"lg{i}_ht": win(ht), f"lg{i}_m": win(m_),
+                             f"lg{i}_phi": win(phi), f"lg{i}_phi_w": win(phi, 1)})
+            acc = None
+            for fn, cnt in groups:
+                contrib = fn(qc, auxc)
+                if acc is None:
+                    acc = contrib
+                else:
+                    yp = F.scalar(pow(y_int, cnt, R), dev)
+                    acc = F.add(F.mul(acc, yp), contrib)
+            h_view[t0:t0 + rows, j0:j0 + b] = (
+                F.mul(acc, auxc["tinv"]).view(b, rows, 32).transpose(0, 1))
+            del qc, auxc, acc
+        del ev, src
+        mark("quotient")
+    return h_ext

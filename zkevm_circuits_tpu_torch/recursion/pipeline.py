@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 
@@ -97,44 +98,68 @@ class LayerProver:
     def _prove_layer(self, name: str, circuit: AggregationSnarksCircuit,
                      vk_inner: VerifyingKey,
                      final_blake2b: bool = False,
-                     rng: np.random.Generator | None = None) -> LayerSnark:
+                     rng: np.random.Generator | None = None,
+                     timings: dict | None = None) -> LayerSnark:
+        """`timings`, when a dict, gets the seconds of the SRS, keygen
+        (with its phases, "keygen_phases", unless the key was cached),
+        prove (with "prove_phases") and the two self-checks ("verify")."""
+        marks = timings if timings is not None else {}
+        # the prover and keygen get a dict only when the caller asked
+        phases = (lambda name: {"timings": marks.setdefault(name, {})}
+                  if timings is not None else {})
         k = circuit.min_k()
         if self.max_k is not None:
             assert k <= self.max_k, (
                 f"layer '{name}' needs k={k} > max_k={self.max_k}"
             )
+        t0 = time.perf_counter()
         srs = self.srs(k)
+        marks["srs"] = time.perf_counter() - t0
         cache_key = f"{name}:k{k}"
+        t0 = time.perf_counter()
         if cache_key in self._keys:
             pk, vk = self._keys[cache_key]
         else:
-            pk, vk = keygen(circuit, k, srs, device=self.device)
+            pk, vk = keygen(circuit, k, srs, device=self.device,
+                            **phases("keygen_phases"))
             self._keys[cache_key] = (pk, vk)
+        marks["keygen"] = time.perf_counter() - t0
         tr = None if final_blake2b else PoseidonTranscript()
+        t0 = time.perf_counter()
         proof = prove(pk, circuit, circuit.instances(), srs, transcript=tr,
                       rng=rng or np.random.default_rng(0xA66),
-                      device=self.device)
+                      device=self.device, **phases("prove_phases"))
+        marks["prove"] = time.perf_counter() - t0
         snark = LayerSnark(
             name=name, k=k, vk=vk, proof=proof,
             instances=circuit.instances(), m=circuit.m,
             inner_g2=(vk_inner.g2, vk_inner.s_g2),
         )
+        t0 = time.perf_counter()
         assert snark.verify_plonk(blake2b=final_blake2b), (
             f"layer '{name}' proof failed self-verification"
         )
         assert snark.verify_accumulator(), (
             f"layer '{name}' accumulator pairing failed"
         )
+        marks["verify"] = time.perf_counter() - t0
         return snark
 
     def compress(self, vk_inner: VerifyingKey, proof: bytes,
                  inner_instances: list[list[int]], name: str,
-                 final_blake2b: bool = False) -> LayerSnark:
+                 final_blake2b: bool = False,
+                 timings: dict | None = None) -> LayerSnark:
         """One thin-compression layer: verify ONE snark in-circuit, fold
         (trivially) and re-prove (reference CompressionCircuit,
-        aggregator/src/compression/circuit.rs:39)."""
+        aggregator/src/compression/circuit.rs:39).  `timings`, when a
+        dict, gets the circuit's host seconds ("circuit") and those of
+        `_prove_layer`."""
+        t0 = time.perf_counter()
         circ = AggregationSnarksCircuit(vk_inner, [proof], [inner_instances])
-        return self._prove_layer(name, circ, vk_inner, final_blake2b)
+        if timings is not None:
+            timings["circuit"] = time.perf_counter() - t0
+        return self._prove_layer(name, circ, vk_inner, final_blake2b,
+                                 timings=timings)
 
     def aggregate(self, vk_inner: VerifyingKey, proofs: list[bytes],
                   instances: list[list[list[int]]],

@@ -270,17 +270,19 @@ class LayerProver:
         key = f"{name}_k{kc}"
         t0 = time.perf_counter()
         if key not in self._keys:
-            marks["keygen_phases"] = {}
+            kw = _on(self.device)
+            if timings is not None:
+                kw["timings"] = marks["keygen_phases"] = {}
             with timer(f"keygen {key}"):
-                self._keys[key] = keygen(comp, kc, srs, timings=marks["keygen_phases"],
-                                         **_on(self.device))
+                self._keys[key] = keygen(comp, kc, srs, **kw)
         pk, vk_c = self._keys[key]
         marks["keygen"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        marks["prove_phases"] = {}
+        kw = _on(self.device)
+        if timings is not None:
+            kw["timings"] = marks["prove_phases"] = {}
         with timer(f"prove {name}"):
-            proof = prove(pk, comp, insts, srs, timings=marks["prove_phases"],
-                          **_on(self.device))
+            proof = prove(pk, comp, insts, srs, **kw)
         marks["prove"] = time.perf_counter() - t0
         out = Proof(proof=proof, instances=insts, k=kc)
         if cache:
@@ -316,7 +318,7 @@ class BatchProver:
         }
 
     def gen_batch_in_circuit(self, layers: LayerProver, layer_items,
-                             chunk_hashes, srs_vk) -> dict:
+                             chunk_hashes, srs_vk, timings: dict | None = None) -> dict:
         """In-circuit aggregation fold (reference
         aggregator/src/aggregation/circuit.rs:40 accumulation step):
         `layer_items` = [(claim, instance_values)] from
@@ -324,28 +326,48 @@ class BatchProver:
         accumulation challenge and both folded points in-circuit
         (recursion/fold.py), is PROVEN, and the returned record carries
         the folded accumulator — valid iff verify_fold's ONE pairing
-        accepts (checked here)."""
+        accepts (checked here).  `timings`, when a dict, gets the seconds
+        of the circuit's host work ("circuit"), the SRS, keygen (with
+        "keygen_phases", unless the key was cached), prove (with
+        "prove_phases") and the two checks ("verify")."""
         from ..plonk.verifier import verify as plonk_verify
         from ..recursion.aggregation import BatchHash
         from ..recursion.fold import AggregationFoldCircuit, verify_fold
         from ..recursion.layer import layer1_accumulator
 
+        marks = timings if timings is not None else {}
+        t0 = time.perf_counter()
         accs = [layer1_accumulator(c, v) for c, v in layer_items]
         circ = AggregationFoldCircuit(accs)
         kk = circ.min_k()
+        marks["circuit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         srs = layers.srs(kk)
+        marks["srs"] = time.perf_counter() - t0
         key = f"fold_k{kk}_m{len(accs)}"
+        t0 = time.perf_counter()
         if key not in layers._keys:
+            kw = _on(layers.device)
+            if timings is not None:
+                kw["timings"] = marks["keygen_phases"] = {}
             with timer(f"keygen {key}"):
-                layers._keys[key] = keygen(circ, kk, srs, **_on(layers.device))
+                layers._keys[key] = keygen(circ, kk, srs, **kw)
         pk, vk_f = layers._keys[key]
+        marks["keygen"] = time.perf_counter() - t0
         insts = circ.instances()
+        t0 = time.perf_counter()
+        kw = _on(layers.device)
+        if timings is not None:
+            kw["timings"] = marks["prove_phases"] = {}
         with timer("prove fold"):
-            fproof = prove(pk, circ, insts, srs, **_on(layers.device))
+            fproof = prove(pk, circ, insts, srs, **kw)
+        marks["prove"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         assert plonk_verify(vk_f, insts, fproof)
         assert verify_fold(srs_vk, insts[0], len(accs)), (
             "folded accumulator pairing rejected"
         )
+        marks["verify"] = time.perf_counter() - t0
         batch = BatchHash(chunk_hashes)
         return {
             "batch_pi_hash": hex(batch.pi_hash()),

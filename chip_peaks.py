@@ -1,5 +1,6 @@
 """A short card check through chip_smoke.py's own functions: the kernel
-checks (K4's fr_add_sub among them), the demo and State k=16 on one
+checks (field_add_sub's record, Fr and Fq, and K1 at a 2^16-row window
+among them), the demo and State k=16 on one
 device and on a one-rank NCCL mesh, then EVM at k=14 and the chunk at
 k=13 with their peak device memory, one degree above the script's.
 
@@ -25,6 +26,8 @@ t_start = time.perf_counter()
 build.lib()
 rec, fails = c.check_kernels(dev, log)
 log("[fr_add_sub rec] " + json.dumps(rec["fr_add_sub"]))
+log("[mont_mul window rec] " + json.dumps(
+    {k: rec["mont_mul"][k] for k in ("window", "window_scalar")}))
 digests, chunk = {}, {}
 
 

@@ -6,10 +6,11 @@
 Phases, one line each (the process exits non-zero on any failure):
   1. the card's name and power limit; the build of the CUDA kernels
      (csrc/*.cu with nvcc for sm_90a) and its time;
-  2. every kernel (K1 mont_mul, K2 twiddle_mul, K3 redc34, K4
-     butterfly_stage and its first stage with twiddle 1 as Fr's add and
-     sub, fr_add_sub, K5 g1_add in three modes and its bucket-step form
-     g1_bucket_add, K6 g1_double once and eight times) against its plain
+  2. every kernel (K1 mont_mul, also at a 2^16-row window, K2
+     twiddle_mul, K3 redc34, K4 butterfly_stage, K5 g1_add in three modes
+     and its bucket-step form g1_bucket_add, K6 g1_double once and eight
+     times, K7 field_add_sub, the add, sub and neg of crypto/field.py over
+     Fr and Fq, counted as fr_add_sub and fq_add_sub) against its plain
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
@@ -20,7 +21,7 @@ Phases, one line each (the process exits non-zero on any failure):
      also logs the peak device memory at each phase's end; the run fails
      if a kernel the path names was not launched on it (K4's NTT stage
      form on entry_k10 and the two mesh paths, K5 and K6 on msm_grid, K1
-     and K5 on entry_k10, every other kernel, both forms of K5 and K4's
+     and K5 on entry_k10, every other kernel, both forms of K5 and K7's
      fr_add_sub included, on the other twenty):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
@@ -273,7 +274,7 @@ def check_kernels(dev, log) -> tuple[dict, list]:
 
 
 def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
-    """Phase 2, K1 to K4, and the DFT-pass matmul timed beside them."""
+    """Phase 2, K1 to K4 and K7, and the DFT-pass matmul timed beside them."""
     from zkevm_circuits_tpu_torch.crypto.field import fq, fr
     from zkevm_circuits_tpu_torch.ops import cuda_field as cf
     from zkevm_circuits_tpu_torch.poly import ntt_mxu
@@ -300,6 +301,24 @@ def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
             rec["mont_mul"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                    bound_by=by,
                                    max_abs_err=_max_err(got, want))
+    # K1 at the quotient's own shape: a 2^16-row window against another and
+    # against a broadcast scalar (Fr)
+    w = 1 << 16
+    x, y2 = (torch.as_tensor(_rand_fe(rng, w, fr().modulus), device=dev)
+             for _ in range(2))
+    for form, y in (("window", y2), ("window_scalar", y2[5])):
+        got = cf.mont_mul_cuda(x, y, cf.FIELD_FR)
+        want = cf.mont_mul_plain(x, y, cf.FIELD_FR)
+        ok = torch.equal(got, want)
+        ms = _time_ms(lambda: cf.mont_mul_cuda(x, y, cf.FIELD_FR), 100)
+        plain_ms = _time_ms(lambda: cf.mont_mul_plain(x, y, cf.FIELD_FR), 3)
+        bound, by = _bound_ms(64 * w + y.numel(), OPS_PER_MONT_MUL * w)
+        rec["mont_mul"][form] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=by, max_abs_err=_max_err(got, want))
+        log(f"[kernels] K1 mont_mul Fr {form} n={w}: match={ok} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.3f} ms bound {bound:.4f} ms")
+        if not ok:
+            fails.append(f"K1 {form} mismatch")
 
     # K3 and K2 on the first pass of a real k=19 coset NTT (2 columns)
     k, bcols = 19, 2
@@ -399,38 +418,45 @@ def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
     if not ok:
         fails.append("K4 row form mismatch")
 
-    # K4 as Fr's add and sub (crypto/field.py on the card), at the
-    # quotient's shapes: a 2^16-row window against another, and against a
-    # broadcast scalar; the plain version is the 16-bit-limb code.  Adding
-    # and subtracting needs no multiply, so the bytes bound it.
+    # field_add_sub (crypto/field.py's add, sub and neg on the card), both
+    # fields, at the quotient's shapes: a 2^16-row window against another
+    # (add, sub), against a broadcast scalar either side (sub), and neg.
+    # Rows 0-2 are 0, 1 and p - 1; rows 16-31 of b are p - a (sums to p)
+    # and rows 32-47 equal a's.  The plain version is the 16-bit-limb code
+    # under the same broadcast rule.  Adding needs no multiply: the bytes
+    # bound it (each operand read once, one output row written).
     n = 1 << 16
-    cs = cf._consts(cf.FIELD_FR, dev)
-    a, b = (torch.as_tensor(_rand_fe(rng, n, F.modulus), device=dev)
-            for _ in range(2))
-    b[5:8] = a[:3]
-
-    def plain(x, y):
-        x, y = cf.to_limbs(x), cf.to_limbs(y)
-        return (cf.from_limbs(cf.add_limbs(x, y, cs)),
-                cf.from_limbs(cf.sub_limbs(x, y, cs)))
-
-    for form, y in (("rows", b), ("scalar", b[9])):
-        got = cf.fr_add_sub_cuda(a, y)
-        want = plain(a, y.expand_as(a))
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        ms = _time_ms(lambda: cf.fr_add_sub_cuda(a, y), 50)
-        plain_ms = _time_ms(lambda: plain(a, y), 3)
-        bound, by = _bound_ms(32 * n + y.numel() + 64 * n, 0)
-        r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 max_abs_err=max(_max_err(g, w) for g, w in zip(got, want)))
-        if form == "rows":
-            rec["fr_add_sub"] = r
-        else:
-            rec["fr_add_sub"]["scalar"] = r
-        log(f"[kernels] K4 fr_add_sub {form} n={n}: match={ok} kernel "
-            f"{ms:.4f} ms plain {plain_ms:.3f} ms bound {bound:.4f} ms")
-        if not ok:
-            fails.append(f"K4 fr_add_sub {form} mismatch")
+    recs = {}
+    for fid, fld in ((cf.FIELD_FR, F), (cf.FIELD_FQ, fq())):
+        a, b = (torch.as_tensor(_rand_fe(rng, n, fld.modulus), device=dev)
+                for _ in range(2))
+        neg_a = fld.from_ints([(-v) % fld.modulus for v in fld.to_ints(a[16:32])])
+        b[16:32] = torch.as_tensor(neg_a, device=dev)
+        b[32:48] = a[32:48]
+        forms = (("rows", a, b, cf.OP_ADD), ("rows_sub", a, b, cf.OP_SUB),
+                 ("scalar", a, b[9], cf.OP_SUB), ("scalar_left", b[9], a, cf.OP_SUB),
+                 ("neg", a, None, cf.OP_NEG))
+        for form, x, y, op in forms:
+            got = cf.field_add_sub_cuda(x, y, op, fid)
+            want = cf.field_add_sub_plain(x, y, op, fid)
+            ok = torch.equal(got, want)
+            ms = _time_ms(lambda: cf.field_add_sub_cuda(x, y, op, fid), 100)
+            plain_ms = _time_ms(lambda: cf.field_add_sub_plain(x, y, op, fid), 3)
+            nbytes = x.numel() + (0 if y is None else y.numel()) + got.numel()
+            bound, by = _bound_ms(nbytes, 0)
+            r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     max_abs_err=_max_err(got, want))
+            if form == "rows":
+                recs[fid] = r
+            else:
+                recs[fid][form] = r
+            log(f"[kernels] field_add_sub {fld.name} {form} n={n}: match={ok} "
+                f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound:.4f} ms")
+            if not ok:
+                fails.append(f"field_add_sub {fld.name} {form} mismatch")
+    # one kernel, one record: Fr's forms at the top (the main path adds
+    # over Fr only), Fq's under "fq"
+    rec["fr_add_sub"] = {**recs[cf.FIELD_FR], "fq": recs[cf.FIELD_FQ]}
 
     return rec, fails
 
@@ -1772,9 +1798,11 @@ KERNELS = [
      "zkevm_circuits_tpu/ops/pallas_field.py:273"),
     ("K4", "butterfly_stage", "zkevm_circuits_tpu_torch/csrc/field.cu",
      "zkevm_circuits_tpu/ops/pallas_field.py:213"),
-    # K4's first stage with twiddle 1 as Fr's add and sub (crypto/field.py)
-    ("K4", "fr_add_sub", "zkevm_circuits_tpu_torch/csrc/field.cu",
-     "zkevm_circuits_tpu/ops/pallas_field.py:213"),
+    # K7, field_add_sub: crypto/field.py's add, sub and neg on the card,
+    # counted as fr_add_sub (Fq: fq_add_sub, in the [launches] lines); it
+    # replaces no Pallas kernel (the JAX package adds in jnp, no pallas_call)
+    ("K7", "fr_add_sub", "zkevm_circuits_tpu_torch/csrc/field.cu",
+     "zkevm_circuits_tpu/crypto/field.py:253"),
     ("K5", "g1_add", "zkevm_circuits_tpu_torch/csrc/curve.cu",
      "zkevm_circuits_tpu/ops/pallas_curve.py:336"),
     ("K5", "g1_bucket_add", "zkevm_circuits_tpu_torch/csrc/curve.cu",

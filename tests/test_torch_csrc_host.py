@@ -1,5 +1,6 @@
 """The curve kernels' device arithmetic (csrc/bn254.cuh Fq32, csrc/curve.cu
-add/double) compiled for the host with a C++ compiler, against Python
+add/double) and field_add_sub's row (bn254.cuh fe_add_sub over 16-byte
+row access) compiled for the host with a C++ compiler, against Python
 integers and the plain versions of K5 and K6, exact bytes.
 
 The PTX carry-chain primitives (namespace cc in bn254.cuh) are replaced by
@@ -24,7 +25,7 @@ import torch
 
 from zkevm_circuits_tpu_torch.crypto.curve import G1
 from zkevm_circuits_tpu_torch.crypto.field import fq
-from zkevm_circuits_tpu_torch.crypto.params import FQ_MODULUS
+from zkevm_circuits_tpu_torch.crypto.params import FQ_MODULUS, FR_MODULUS
 from zkevm_circuits_tpu_torch.ops import cuda_curve as cc
 from zkevm_circuits_tpu_torch.poly.kzg import srs_g1_powers
 
@@ -42,6 +43,11 @@ static inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
   return (uint64_t)(((unsigned __int128)a * b) >> 64);
 }
 static inline bool __any_sync(unsigned, bool p) { return p; }
+struct ulonglong2 { unsigned long long x, y; };
+static inline ulonglong2 make_ulonglong2(unsigned long long x, unsigned long long y) {
+  return ulonglong2{x, y};
+}
+template <class T> static inline T __ldg(const T *p) { return *p; }
 """
 
 _CARRY = r"""
@@ -89,6 +95,13 @@ extern "C" void fq_rows(int op, const uint64_t *a, const uint64_t *b,
     const Fq32 x = fq_load(a, i), y = fq_load(b, i);
     fq_store(o, i, op == 0 ? fq_mul(x, y) : op == 1 ? fq_sqr(x)
                           : op == 2 ? fq_add(x, y) : fq_sub(x, y));
+  }
+}
+extern "C" void fe_rows(int op, int f, const uint64_t *a, const uint64_t *b,
+                        uint64_t *o, long n) {
+  for (long i = 0; i < n; i++) {
+    const Fe x = fe_load2(a, i);
+    fe_store2(o, i, fe_add_sub(op, x, op == OP_NEG ? x : fe_load2(b, i), f));
   }
 }
 extern "C" void add_rows_host(int mode, const uint64_t *const *p,
@@ -176,6 +189,32 @@ def test_fq32_matches_python_ints(lib, op):
     lib.fq_rows(code, _ptr(a), _ptr(b), _ptr(out), ctypes.c_long(len(x)))
     got = [int.from_bytes(r.tobytes(), "little") for r in out]
     assert got == [fn(u, v) for u, v in zip(x, y)]
+
+
+_FE_OPS = {"add": (0, lambda x, y, p: (x + y) % p),
+           "sub": (1, lambda x, y, p: (x - y) % p),
+           "neg": (2, lambda x, y, p: -x % p)}
+
+
+@pytest.mark.parametrize("field", [0, 1])
+@pytest.mark.parametrize("op", list(_FE_OPS))
+def test_field_add_sub_row_matches_python_ints(lib, op, field):
+    """field_add_sub's row (csrc/field.cu: fe_load2, bn254.cuh fe_add_sub,
+    fe_store2) over Fr or Fq, with 0, 1, p - 1, pairs summing to p and
+    equal pairs among the rows."""
+    p = FR_MODULUS if field == 0 else FQ_MODULUS
+    code, fn = _FE_OPS[op]
+    rng = np.random.default_rng(30 + field)
+    x = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(300)]
+    y = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(300)]
+    x[:4], y[:4] = [0, 1, p - 1, 0], [0, p - 1, 1, p - 1]
+    y[10:20] = [(p - v) % p for v in x[10:20]]
+    y[20:30] = x[20:30]
+    a, b = _u8(x), _u8(y)
+    out = np.zeros_like(a)
+    lib.fe_rows(code, field, _ptr(a), _ptr(b), _ptr(out), ctypes.c_long(len(x)))
+    got = [int.from_bytes(r.tobytes(), "little") for r in out]
+    assert got == [fn(u, v, p) for u, v in zip(x, y)]
 
 
 def _jacobian(n, seed):

@@ -1,10 +1,12 @@
 """Port field arithmetic (zkevm_circuits_tpu_torch.crypto.field and the
-plain version of kernel K1) against the JAX package, exact bytes.
+plain versions of kernels K1 and field_add_sub) against the JAX package,
+exact bytes.
 
 Inputs are made with numpy from a seed and handed to both sides; the port
 runs on CPU tensors.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -62,20 +64,53 @@ def test_add_sub(name, op):
     assert np.array_equal(getattr(T, op)(_t(a), _t(b)).numpy(), want)
 
 
-@pytest.mark.parametrize("bshape", [(64,), (), (4, 1)])
-def test_fr_add_sub_through_k4_plain_stage(bshape):
-    """K4's first stage with twiddle 1 over the pairs (a, b), Fr's add and
-    sub on the card, in its plain version: the reference's add and sub,
-    broadcast either way, with 0, 1 and p - 1 among the rows."""
-    J, _ = _fields("fr")
+def _add_sub_forms(J):
+    """(x, y) operand pairs of field_add_sub's forms, from a numpy seed:
+    rows 0-2 of a are 0, 1 and p - 1, rows 16-31 of b are p - a (sums to
+    p), rows 32-47 of b equal a's."""
     a = _vals(J, 11, 64)
-    b = _vals(J, 12, 64)[::-1].copy()[:int(np.prod(bshape))].reshape(*bshape, 32)
-    a2 = a.reshape(4, 16, 32) if len(bshape) == 2 else a
-    for x, y in ((a2, b), (b, a2)):
-        got = cf.fr_add_sub_plain(_t(x), _t(y))
-        assert np.array_equal(got[0].numpy(), np.asarray(J.add(x, y)))
-        assert np.array_equal(got[1].numpy(), np.asarray(J.sub(x, y)))
-    assert cf.fr_add_sub_plain(_t(a[:0]), _t(a[:0]))[0].shape == (0, 32)
+    b = _vals(J, 12, 64)[::-1].copy()
+    b[0] = J.from_ints([J.modulus - 1])[0]
+    b[16:32] = J.from_ints([(-v) % J.modulus for v in J.to_ints(a[16:32])])
+    b[32:48] = a[32:48]
+    return {"rows": (a, b), "scalar_right": (a, b[9]), "scalar_left": (b[9], a),
+            "bcast": (a.reshape(4, 16, 32), b[:4].reshape(4, 1, 32)),
+            "empty": (a[:0], b[:0])}
+
+
+@pytest.mark.parametrize("name", FIELDS)
+@pytest.mark.parametrize("op", ["add", "sub", "neg"])
+@pytest.mark.parametrize("form", ["rows", "scalar_right", "scalar_left", "bcast", "empty"])
+def test_field_add_sub_shapes_match_reference(name, op, form):
+    """field_add_sub's shape logic (cuda_field._add_sub: a broadcast single
+    row passed as one row, any other broadcast materialised) with its plain
+    launch, byte for byte against the JAX package's jitted F.add, F.sub and
+    F.neg; neg is taken of each operand of the form."""
+    J, _ = _fields(name)
+    fid = cf.FIELD_FR if name == "fr" else cf.FIELD_FQ
+    x, y = _add_sub_forms(J)[form]
+    if op == "neg":
+        for v in (x, y):
+            got = cf.field_add_sub_plain(_t(v), None, cf.OP_NEG, fid)
+            assert np.array_equal(got.numpy(), np.asarray(jax.jit(J.neg)(v)))
+        return
+    code = cf.OP_ADD if op == "add" else cf.OP_SUB
+    want = np.asarray(jax.jit(getattr(J, op))(x, y))
+    got = cf.field_add_sub_plain(_t(x), _t(y), code, fid)
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+
+
+def test_field_add_sub_cuda_raises_on_cpu_rows():
+    """The wrapper on the card's route never computes on the CPU: a CPU
+    operand raises, as do operands on different devices."""
+    J, _ = _fields("fr")
+    a = _t(_vals(J, 13, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        cf.field_add_sub_cuda(a, a, cf.OP_ADD, cf.FIELD_FR)
+    with pytest.raises(ValueError, match="CUDA"):
+        cf.field_add_sub_cuda(a, None, cf.OP_NEG, cf.FIELD_FQ)
+    with pytest.raises(ValueError, match="different devices"):
+        cf.field_add_sub_plain(a, a.to("meta"), cf.OP_SUB, cf.FIELD_FR)
 
 
 @pytest.mark.parametrize("name", FIELDS)

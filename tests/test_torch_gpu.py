@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, byte for byte (K4 also as Fr's add and sub; K5's
-three modes, its warp vote and
+version on the card, byte for byte (field_add_sub as F.add, F.sub and
+F.neg of either field, one launch each; K5's three modes, its warp vote and
 its bucket-step form, K6 once and eight times), the sharded ops on an
 NCCL group of one rank against the unsharded ones, the MSM's K6 launch
 count, and the k=5 demo, k=9 Keccak and k=9 EVM golden proofs on the
@@ -89,28 +89,45 @@ def test_k4_kernel_matches_plain(dev):
         assert torch.equal(cf.dit_stage(x, tw, s), cf.dit_stage_plain(x, tw, s)), s
 
 
-def test_fr_add_sub_on_card_are_one_k4_launch(dev):
-    """Fr's add, sub and neg on CUDA tensors (one K4 launch each: the first
-    DIT stage with twiddle 1, counted as "fr_add_sub" and not as an NTT
-    stage) equal the limb arithmetic on the same rows, with 0, 1 and p - 1
-    among them, broadcast either way."""
-    F = fr()
+@pytest.mark.parametrize("fid", [cf.FIELD_FR, cf.FIELD_FQ])
+def test_add_sub_neg_on_card_are_one_launch_each(dev, fid):
+    """F.add, F.sub and F.neg on CUDA tensors, either field: one launch
+    each of field_add_sub, counted as "fr_add_sub" or "fq_add_sub", which
+    allocates only its output, and equal to the plain version on the same
+    rows (0, 1, p - 1, sums to p and equal pairs among them), broadcast
+    either way."""
+    F = fr() if fid == cf.FIELD_FR else fq()
+    name = cf.ADD_SUB_COUNTER[fid]
     a = torch.as_tensor(_rand_fe(21, 4096, F.modulus), device=dev)
     b = torch.as_tensor(_rand_fe(22, 4096, F.modulus), device=dev)
     b[5:8] = a[:3]
-    cs = cf._consts(cf.FIELD_FR, dev)
-    lim = cf.to_limbs
-    for x, y in ((a, b), (a, b[2]), (a[1], b), (a.reshape(64, 64, 32), b[:64, None])):
-        shape = torch.broadcast_shapes(x.shape, y.shape)
-        xe, ye = x.expand(shape), y.expand(shape)
-        before = dict(cf.LAUNCHES)
-        got_add, got_sub = F.add(x, y), F.sub(x, y)
-        assert cf.LAUNCHES == {**before, "fr_add_sub": before["fr_add_sub"] + 2}
-        assert torch.equal(got_add, cf.from_limbs(cf.add_limbs(lim(xe), lim(ye), cs)))
-        assert torch.equal(got_sub, cf.from_limbs(cf.sub_limbs(lim(xe), lim(ye), cs)))
-    zero = torch.zeros_like(a)
-    assert torch.equal(F.neg(a), cf.from_limbs(cf.sub_limbs(lim(zero), lim(a), cs)))
+    b[16:32] = cf.field_add_sub_plain(a[16:32], None, cf.OP_NEG, fid)
+
+    def one_launch(fn, args, want, materialised=False):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before, mem = dict(cf.LAUNCHES), torch.cuda.memory_allocated(dev)
+        got = fn(*args)
+        assert cf.LAUNCHES == {**before, name: before[name] + 1}
+        assert torch.cuda.memory_allocated(dev) - mem == _block(got)
+        if not materialised:  # nothing but the output, even for a moment
+            assert torch.cuda.max_memory_allocated(dev) - mem == _block(got)
+        assert torch.equal(got, want)
+
+    forms = ((a, b), (a, b[2]), (a[1], b), (a.reshape(64, 64, 32), b[:64, None]))
+    for i, (x, y) in enumerate(forms):
+        for fn, op in ((F.add, cf.OP_ADD), (F.sub, cf.OP_SUB)):
+            one_launch(fn, (x, y), cf.field_add_sub_plain(x, y, op, fid), i == 3)
+    for x in (a, b[2], a.reshape(64, 64, 32)):
+        one_launch(F.neg, (x,), cf.field_add_sub_plain(x, None, cf.OP_NEG, fid))
+    assert not F.neg(torch.zeros_like(a)).any()
     assert F.add(a[:0], b[:0]).shape == (0, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        F.add(a.view(-1)[8:8 + 32 * 16].view(16, 32), b[:16])
+
+
+def _block(t: torch.Tensor) -> int:
+    """Bytes the caching allocator gives a tensor: 512-byte blocks."""
+    return -(-t.numel() * t.element_size() // 512) * 512
 
 
 @pytest.fixture

@@ -1,6 +1,6 @@
 """Rules of the port, checked statically: no file of
-zkevm_circuits_tpu_torch/, chip_smoke.py or msm_state_timing.py imports
-JAX or the JAX package, or loads the JAX tree's native library; every
+zkevm_circuits_tpu_torch/, chip_smoke.py, chip_peaks.py or ab_timing.py
+imports JAX or the JAX package, or loads the JAX tree's native library; every
 module imports without a card or a compiler; the kernel build directory
 is git-ignored; each kernel source names the TPU kernel it replaces.  The
 EVM circuit's subpackages (types, tracer, witness, circuits), the
@@ -18,7 +18,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "zkevm_circuits_tpu_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "msm_state_timing.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / f for f in (
+    "chip_smoke.py", "chip_peaks.py", "ab_timing.py")]
 FORBIDDEN = ("jax", "jaxlib", "zkevm_circuits_tpu")
 
 

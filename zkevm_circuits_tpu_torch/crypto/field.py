@@ -6,9 +6,11 @@ leading batch shape, Montgomery form with R = 2^256, canonical (< p) at
 every public function.
 
 `mul` is kernel K1 (ops/cuda_field.py) on CUDA tensors and its plain
-version on CPU tensors.  add/sub/neg are plain tensor code over 16-bit
-limbs.  Ops run on the device of their tensor inputs; numpy inputs are
-moved to the default device, the card.
+version on CPU tensors.  add, sub and neg are one launch each of the
+field_add_sub kernel (ops/cuda_field.py, csrc/field.cu) on CUDA tensors,
+either field, and plain tensor code over 16-bit limbs on CPU tensors.  Ops
+run on the device of their tensor inputs; numpy inputs are moved to the
+default device, the card.
 """
 
 from __future__ import annotations
@@ -108,23 +110,27 @@ class Fp:
         return cf._consts(self.field_id, device)
 
     def add(self, a, b):
-        """a + b; Fr on CUDA tensors: one K4 launch (fr_add_sub_cuda)."""
+        """a + b: one field_add_sub launch on CUDA tensors."""
         a, b = _pair(a, b)
-        if a.is_cuda and self.field_id == cf.FIELD_FR:
-            return cf.fr_add_sub_cuda(a, b)[0]
+        if a.is_cuda or b.is_cuda:
+            return cf.field_add_sub_cuda(a, b, cf.OP_ADD, self.field_id)
         cs = self._cs(a.device)
         return cf.from_limbs(cf.add_limbs(cf.to_limbs(a), cf.to_limbs(b), cs))
 
     def sub(self, a, b):
-        """a - b; Fr on CUDA tensors: one K4 launch (fr_add_sub_cuda)."""
+        """a - b: one field_add_sub launch on CUDA tensors."""
         a, b = _pair(a, b)
-        if a.is_cuda and self.field_id == cf.FIELD_FR:
-            return cf.fr_add_sub_cuda(a, b)[1]
+        if a.is_cuda or b.is_cuda:
+            return cf.field_add_sub_cuda(a, b, cf.OP_SUB, self.field_id)
         cs = self._cs(a.device)
         return cf.from_limbs(cf.sub_limbs(cf.to_limbs(a), cf.to_limbs(b), cs))
 
     def neg(self, a):
+        """-a (0 maps to 0): one field_add_sub launch on a CUDA tensor,
+        which reads `a` only."""
         a = as_tensor(a)
+        if a.is_cuda:
+            return cf.field_add_sub_cuda(a, None, cf.OP_NEG, self.field_id)
         return self.sub(torch.zeros_like(a), a)
 
     def mul(self, a, b):

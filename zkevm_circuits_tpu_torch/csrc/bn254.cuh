@@ -146,6 +146,41 @@ __device__ __forceinline__ void fe_store(uint64_t *p, int64_t row,
   for (int j = 0; j < 4; j++) q[j] = a.v[j];
 }
 
+// The same rows as two 16-byte vector accesses each (the row must be 16-byte
+// aligned): neighbouring threads take neighbouring rows, so a warp moves its
+// 1 KB in two instructions; the read goes through the read-only path
+// (ld.global.nc.v2.u64).
+__device__ __forceinline__ Fe fe_load2(const uint64_t *p, int64_t row) {
+  const ulonglong2 *q = reinterpret_cast<const ulonglong2 *>(p) + 2 * row;
+  const ulonglong2 lo = __ldg(q), hi = __ldg(q + 1);
+  Fe r;
+  r.v[0] = lo.x;
+  r.v[1] = lo.y;
+  r.v[2] = hi.x;
+  r.v[3] = hi.y;
+  return r;
+}
+
+__device__ __forceinline__ void fe_store2(uint64_t *p, int64_t row,
+                                          const Fe &a) {
+  ulonglong2 *q = reinterpret_cast<ulonglong2 *>(p) + 2 * row;
+  q[0] = make_ulonglong2(a.v[0], a.v[1]);
+  q[1] = make_ulonglong2(a.v[2], a.v[3]);
+}
+
+// the field kernels' add, subtract and negate, by op code
+constexpr int OP_ADD = 0;  // a + b
+constexpr int OP_SUB = 1;  // a - b
+constexpr int OP_NEG = 2;  // -a, b unread (0 maps to 0)
+
+__device__ __forceinline__ Fe fe_add_sub(int op, const Fe &a, const Fe &b,
+                                         int f) {
+  if (op == OP_ADD) return fe_add(a, b, f);
+  if (op == OP_SUB) return fe_sub(a, b, f);
+  const Fe zero = {{0, 0, 0, 0}};
+  return fe_sub(zero, a, f);  // 0 - a borrows, and adds p, unless a = 0
+}
+
 // ---------------------------------------------------------------------------
 // Fq over 8 x u32 words on the integer pipe's carry chains (K5, K6)
 // ---------------------------------------------------------------------------

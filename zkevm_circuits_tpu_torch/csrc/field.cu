@@ -1,5 +1,5 @@
-// Field kernels K1 (mont_mul), K2 (NTT twiddle multiply), K3 (wide REDC)
-// and K4 (radix-2 butterfly stage).
+// Field kernels K1 (mont_mul), K2 (NTT twiddle multiply), K3 (wide REDC),
+// K4 (radix-2 butterfly stage) and field_add_sub (add, subtract, negate).
 //
 // K1 replaces zkevm_circuits_tpu/ops/pallas_field.py::mont_mul
 //    (_mul_kernel -> _mont_mul_block: digit convolution, REDC, carry canon).
@@ -31,6 +31,23 @@
 // butterfly index, as K2 does, so the stage reads the (half, 32) table of
 // the stage and never a pre-broadcast (rows, 32) copy, and no concatenate
 // follows: both outputs are written where the next stage reads them.
+//
+// field_add_sub (add, subtract and negate over Fr or Fq: crypto/field.py's
+// add, sub and neg on the card) replaces no Pallas kernel: the JAX package
+// adds in plain jnp (zkevm_circuits_tpu/crypto/field.py:253-271, _add, _sub,
+// _neg), one elementwise fusion under jit.  It was added because Fr's add
+// and sub on K4's first DIT stage with twiddle 1 reached 10% of their bytes
+// bound at the quotient's 2^16-row windows (a stack of both operands, a
+// multiply by 1, two outputs and two copies), and Fq's still took the
+// 16-bit-limb code's fifty launches.  What bounds it: per row, 96 bytes for
+// rows +- rows and 64 for rows +- a scalar or for neg, against a few dozen
+// integer instructions (an add or subtract chain and one conditional
+// correction by p, no multiply): memory bound, and at 2^16 rows (2-6 MB)
+// the launch's own latency is of the same order as the bytes.  So one
+// thread owns one row: it reads each operand once as two 16-byte vectors
+// (a broadcast scalar is one row that every thread reads, as in K1),
+// computes in registers, writes exactly one 32-byte row, and nothing else
+// goes through memory.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -159,6 +176,18 @@ __global__ void dit_stage_kernel(const uint64_t *__restrict__ x,
   fe_store(out, hi, fe_sub(a, p, FIELD_FR));
 }
 
+// out[i] = a[i or 0] op b[i or 0] over field f, op as bn254.cuh's OP_*
+__global__ void field_add_sub_kernel(const uint64_t *__restrict__ a,
+                                     const uint64_t *__restrict__ b,
+                                     uint64_t *__restrict__ out, int64_t n,
+                                     int f, int op, int a_bcast, int b_bcast) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fe x = fe_load2(a, a_bcast ? 0 : i);
+  const Fe y = op == OP_NEG ? x : fe_load2(b, b_bcast ? 0 : i);
+  fe_store2(out, i, fe_add_sub(op, x, y, f));
+}
+
 }  // namespace
 
 extern "C" {
@@ -209,6 +238,17 @@ int zk_dit_stage(const void *x, const void *tw, void *out, int64_t pairs,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint64_t *>(x), static_cast<const uint64_t *>(tw),
         static_cast<uint64_t *>(out), pairs, log_n, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int zk_field_add_sub(const void *a, const void *b, void *out, int64_t n,
+                     int field, int op, int a_bcast, int b_bcast,
+                     void *stream) {
+  if (n > 0)
+    field_add_sub_kernel<<<blocks_for(n), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint64_t *>(a), static_cast<const uint64_t *>(b),
+        static_cast<uint64_t *>(out), n, field, op, a_bcast, b_bcast);
   return static_cast<int>(cudaGetLastError());
 }
 

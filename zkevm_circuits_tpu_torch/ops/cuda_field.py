@@ -1,6 +1,6 @@
 """Field kernels K1 (Montgomery multiply), K2 (NTT twiddle multiply), K3
-(wide REDC) and K4 (radix-2 butterfly stage), with their plain PyTorch
-versions.
+(wide REDC), K4 (radix-2 butterfly stage) and field_add_sub (add, subtract
+and negate over Fr or Fq), with their plain PyTorch versions.
 
 Each wrapper sends a CUDA tensor to its kernel (csrc/field.cu) and a CPU
 tensor to its plain version; there is no other route.  The plain versions
@@ -32,8 +32,8 @@ RED_LIMBS = 17  # the NTT's wide REDC divides by 2^272 = 2^(16 * 17)
 
 # kernel launches, counted where each wrapper launches its kernel
 LAUNCHES = {"mont_mul": 0, "twiddle_mul": 0, "redc34": 0,
-            "butterfly_stage": 0, "fr_add_sub": 0, "g1_add": 0,
-            "g1_bucket_add": 0, "g1_double": 0}
+            "butterfly_stage": 0, "fr_add_sub": 0, "fq_add_sub": 0,
+            "g1_add": 0, "g1_bucket_add": 0, "g1_double": 0}
 
 
 def reset_launches() -> None:
@@ -162,14 +162,16 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _check_rows(t: torch.Tensor, name: str, dtype=torch.uint8, width=32):
+def _check_rows(t: torch.Tensor, name: str, dtype=torch.uint8, width=32,
+                align=8):
     if t.dtype != dtype or t.shape[-1] != width:
         raise ValueError(f"{name}: expected (..., {width}) {dtype}, got "
                          f"{tuple(t.shape)} {t.dtype}")
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
-    if not t.is_contiguous() or t.data_ptr() % 8:
-        raise ValueError(f"{name}: expected a contiguous, 8-byte aligned tensor")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a contiguous, {align}-byte "
+                         f"aligned tensor")
 
 
 def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: int) -> torch.Tensor:
@@ -305,43 +307,6 @@ def butterfly_stage(lo: torch.Tensor, hi: torch.Tensor,
     return butterfly_stage_plain(lo, hi, tw)
 
 
-@functools.cache
-def _fr_one_row(device: torch.device) -> torch.Tensor:
-    """(1, 32): Montgomery 1 of Fr, the twiddle of a DIT ladder's first
-    stage."""
-    one = (1 << 256) % FR_MODULUS
-    return torch.tensor([list(one.to_bytes(32, "little"))], dtype=torch.uint8,
-                        device=device)
-
-
-def _fr_add_sub(a: torch.Tensor, b: torch.Tensor, stage):
-    """(a + b, a - b) over Fr for canonical rows, broadcast, from one
-    first DIT stage `stage(x, tw)` with twiddle 1 over the interleaved
-    pairs (a, b): (a + b * 1, a - b * 1), the values of add_limbs and
-    sub_limbs."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    if not shape.numel():
-        return torch.empty(shape, dtype=torch.uint8, device=a.device), \
-            torch.empty(shape, dtype=torch.uint8, device=a.device)
-    pairs = torch.stack([a.expand(shape), b.expand(shape)], dim=-2)
-    out = stage(pairs.reshape(-1, 2, 32), _fr_one_row(a.device))
-    return (out[:, 0].contiguous().reshape(shape),
-            out[:, 1].contiguous().reshape(shape))
-
-
-def fr_add_sub_cuda(a: torch.Tensor, b: torch.Tensor):
-    """(a + b, a - b) over Fr for canonical CUDA rows in one K4 launch,
-    counted as "fr_add_sub" (not as an NTT stage), where add_limbs and
-    sub_limbs take about fifty launches each."""
-    return _fr_add_sub(a, b, lambda x, tw: _dit_stage_launch(x, tw, 1, "fr_add_sub"))
-
-
-def fr_add_sub_plain(a: torch.Tensor, b: torch.Tensor):
-    """Plain version of fr_add_sub_cuda: the same pairs through K4's plain
-    stage."""
-    return _fr_add_sub(a, b, lambda x, tw: dit_stage_plain(x, tw, 1))
-
-
 def _stage_shape(x: torch.Tensor, tw: torch.Tensor, s: int) -> int:
     """log2 of the transform length; raises on a shape the stage cannot take."""
     n = x.shape[-2] if x.dim() >= 2 else 0
@@ -365,9 +330,8 @@ def dit_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([out_lo, out_hi], dim=-2).reshape(x.shape)
 
 
-def _dit_stage_launch(x: torch.Tensor, tw: torch.Tensor, s: int,
-                      counter: str) -> torch.Tensor:
-    """One launch of K4's stage form, counted under `counter`."""
+def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """K4's stage form on the card: one launch over the whole batch."""
     log_n = _stage_shape(x, tw, s)
     x, tw = x.contiguous(), tw.contiguous()
     _check_rows(x, "dit_stage x")
@@ -375,14 +339,9 @@ def _dit_stage_launch(x: torch.Tensor, tw: torch.Tensor, s: int,
     out = torch.empty_like(x)
     build.check(build.lib().zk_dit_stage(
         x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.numel() // 64, log_n, s,
-        _stream()), counter)
-    LAUNCHES[counter] += 1
+        _stream()), "butterfly_stage")
+    LAUNCHES["butterfly_stage"] += 1
     return out
-
-
-def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
-    """K4's stage form on the card: one launch over the whole batch."""
-    return _dit_stage_launch(x, tw, s, "butterfly_stage")
 
 
 def dit_stage(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
@@ -391,3 +350,71 @@ def dit_stage(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     if x.is_cuda or tw.is_cuda:
         return dit_stage_cuda(x, tw, s)
     return dit_stage_plain(x, tw, s)
+
+
+# ---------------------------------------------------------------------------
+# field_add_sub: a + b, a - b or -a over Fr or Fq (crypto/field.py on the
+# card); it replaces no Pallas kernel (the JAX package adds in jnp)
+# ---------------------------------------------------------------------------
+OP_ADD, OP_SUB, OP_NEG = 0, 1, 2  # csrc/bn254.cuh's OP_*
+ADD_SUB_COUNTER = {FIELD_FR: "fr_add_sub", FIELD_FQ: "fq_add_sub"}
+
+
+def _add_sub(a: torch.Tensor, b: torch.Tensor | None, op: int, field: int,
+             launch) -> torch.Tensor:
+    """Shape logic of field_add_sub around `launch(a, b, out, op, field,
+    a_bc, b_bc)`, K1's broadcast rule: a single-row operand that the other
+    broadcasts over is passed as its one row (a_bc, b_bc), any other
+    broadcast is materialised, a non-contiguous operand made contiguous.
+    Neg reads `a` only (b is None).  One output, a new tensor."""
+    if op == OP_NEG:
+        shape, a_bc, b_bc = a.shape, False, False
+    else:
+        if a.device != b.device:
+            raise ValueError("field_add_sub: operands on different devices")
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        a_bc = a.numel() == 32 and shape != a.shape
+        b_bc = b.numel() == 32 and shape != b.shape
+        b = b.contiguous() if b_bc else b.expand(shape).contiguous()
+    a = a.contiguous() if a_bc else a.expand(shape).contiguous()
+    out = torch.empty(shape, dtype=torch.uint8, device=a.device)
+    launch(a, b, out, op, field, a_bc, b_bc)
+    return out
+
+
+def _add_sub_plain_launch(a, b, out, op, field, a_bc, b_bc):
+    """The limb code into `out`; a broadcast row broadcasts as a tensor."""
+    cs = _consts(field, a.device)
+    x = to_limbs(a)
+    if op == OP_NEG:
+        r = sub_limbs(torch.zeros_like(x), x, cs)
+    else:
+        r = (add_limbs if op == OP_ADD else sub_limbs)(x, to_limbs(b), cs)
+    out.copy_(from_limbs(r))
+
+
+def _add_sub_cuda_launch(a, b, out, op, field, a_bc, b_bc):
+    _check_rows(a, "field_add_sub a", align=16)
+    if b is not None:
+        _check_rows(b, "field_add_sub b", align=16)
+    build.check(build.lib().zk_field_add_sub(
+        a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+        out.numel() // 32, field, op, int(a_bc), int(b_bc), _stream()),
+        "field_add_sub")
+    LAUNCHES[ADD_SUB_COUNTER[field]] += 1
+
+
+def field_add_sub_cuda(a: torch.Tensor, b: torch.Tensor | None, op: int,
+                       field: int) -> torch.Tensor:
+    """a + b (OP_ADD), a - b (OP_SUB) or -a (OP_NEG, b None) of canonical
+    (..., 32) CUDA rows over `field`, broadcasting: one launch of
+    field_add_sub, counted as "fr_add_sub" or "fq_add_sub"; raises on a
+    CPU operand, a row that is not 16-byte aligned or a failed launch."""
+    return _add_sub(a, b, op, field, _add_sub_cuda_launch)
+
+
+def field_add_sub_plain(a: torch.Tensor, b: torch.Tensor | None, op: int,
+                        field: int) -> torch.Tensor:
+    """Plain version of field_add_sub: the 16-bit-limb add_limbs and
+    sub_limbs under the same broadcast rule."""
+    return _add_sub(a, b, op, field, _add_sub_plain_launch)

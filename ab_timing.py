@@ -15,7 +15,13 @@ comma-separated list of:
   - state_k16: the State k=16 prove seconds and phases
     (`state_prove_bench`);
   - field_kernels: chip_smoke's field kernel checks
-    (`check_field_kernels`), keeping the add/sub and K1 records;
+    (`check_field_kernels`), keeping the K1, K2, K4 and add/sub records;
+  - curve_kernels: chip_smoke's curve kernel checks
+    (`check_curve_kernels`): the K5 and K6 records;
+  - host_us: the host microseconds a call of the tree's K1 and K7
+    wrappers (`mont_mul_cuda`, `field_add_sub_cuda`, Fr) takes at a
+    2^16-row window, row against row and against a broadcast row: the
+    median of 300 calls while `torch.cuda._sleep` holds the card;
   - recursion_layer1, keccak: chip_smoke's `prove_recursion_layer1` and
     `prove_keccak_full` with the launch counts set to 0 first: the path's
     seconds, the prove seconds, phases and launches, and the host seconds
@@ -43,8 +49,8 @@ import os
 import subprocess
 import sys
 
-PATHS = ("msm", "state_k16", "field_kernels", "recursion_layer1", "keccak",
-         "recursion_layer1+trace", "keccak+trace")
+PATHS = ("msm", "state_k16", "field_kernels", "curve_kernels", "host_us",
+         "recursion_layer1", "keccak", "recursion_layer1+trace", "keccak+trace")
 
 CHILD = r"""
 import json, re, statistics, sys, time
@@ -98,7 +104,38 @@ def state_k16():
 def field_kernels():
     import chip_smoke as c
     rec, fails = c.check_field_kernels(dev, log, np.random.default_rng(c.SEED))
-    return {k: rec[k] for k in ("fr_add_sub", "mont_mul")}, fails
+    return {k: rec[k] for k in ("fr_add_sub", "mont_mul", "twiddle_mul",
+                                "butterfly_stage")}, fails
+
+
+def curve_kernels():
+    import chip_smoke as c
+    return c.check_curve_kernels(dev, log, np.random.default_rng(c.SEED))
+
+
+def host_us():
+    def per_call(fn, calls=300):
+        # the median of each call's host time, the card held busy
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        ts = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return statistics.median(ts) * 1e6
+
+    rng = np.random.default_rng(2)
+    x, y = (torch.as_tensor(rng.integers(0, 256, size=(1 << 16, 32), dtype=np.uint8)
+                            & np.uint8(0x0F), device=dev) for _ in range(2))
+    s = y[5]
+    return {"k1": per_call(lambda: cf.mont_mul_cuda(x, y, cf.FIELD_FR)),
+            "k1_scalar": per_call(lambda: cf.mont_mul_cuda(x, s, cf.FIELD_FR)),
+            "k7": per_call(lambda: cf.field_add_sub_cuda(x, y, cf.OP_ADD, cf.FIELD_FR)),
+            "k7_scalar": per_call(
+                lambda: cf.field_add_sub_cuda(x, s, cf.OP_SUB, cf.FIELD_FR))}, []
 
 
 def _dev_us(e):
@@ -195,8 +232,11 @@ def prove_path(name, trace):
 
 build.lib()
 out, fails = {}, []
+# registers and spills of each kernel as this tree's build reports them
+out["ptxas"] = [ln.strip() for ln in build.PTXAS_LOG.splitlines()
+                if "entry function" in ln or "registers" in ln or "spill" in ln]
 for p in paths:
-    if p in ("msm", "state_k16", "field_kernels"):
+    if p in ("msm", "state_k16", "field_kernels", "curve_kernels", "host_us"):
         res, f = globals()[p]()
     else:
         res, f = prove_path(p.split("+")[0], p.endswith("+trace"))

@@ -6,7 +6,9 @@
 Phases, one line each (the process exits non-zero on any failure):
   1. the card's name and power limit; the build of the CUDA kernels
      (csrc/*.cu with nvcc for sm_90a) and its time;
-  2. every kernel (K1 mont_mul, also at a 2^16-row window, K2
+  2. every kernel (K1 mont_mul, also at a 2^16-row window, and at 2^12 ..
+     2^20 rows beside K7's add, fitted to a fixed and a per-row cost, with
+     the host microseconds a call of K1's and K7's wrappers takes, K2
      twiddle_mul, K3 redc34, K4 butterfly_stage, K5 g1_add in three modes
      and its bucket-step form g1_bucket_add, K6 g1_double once and eight
      times, K7 field_add_sub, the add, sub and neg of crypto/field.py over
@@ -165,7 +167,9 @@ Phases, one line each (the process exits non-zero on any failure):
   4. a `kernels` JSON line: each kernel (K5's two forms apart) with its
      launches on the Keccak path (K4: on mesh_state_k16) and, beside
      them, on every path, its check from phase 2, its time, bound and
-     plain time, and those of its other shapes and forms;
+     plain time, and those of its other shapes and forms (K1's: Fq at
+     2^20, the window, and the sweep of phase 2 with its fits and the
+     wrappers' host microseconds);
   5. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -296,11 +300,13 @@ def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
             f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms")
         if not ok:
             fails.append(f"K1 {fld.name} mismatch")
+        bound, by = _bound_ms(96 * n, OPS_PER_MONT_MUL * n)
+        r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 max_abs_err=_max_err(got, want))
         if fid == cf.FIELD_FR:
-            bound, by = _bound_ms(96 * n, OPS_PER_MONT_MUL * n)
-            rec["mont_mul"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                   bound_by=by,
-                                   max_abs_err=_max_err(got, want))
+            rec["mont_mul"] = r
+        else:
+            rec["mont_mul"]["fq"] = r
     # K1 at the quotient's own shape: a 2^16-row window against another and
     # against a broadcast scalar (Fr)
     w = 1 << 16
@@ -319,6 +325,7 @@ def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
             f"{ms:.4f} ms plain {plain_ms:.3f} ms bound {bound:.4f} ms")
         if not ok:
             fails.append(f"K1 {form} mismatch")
+    rec["mont_mul"]["sweep"] = sweep_k1_k7(dev, log, rng)
 
     # K3 and K2 on the first pass of a real k=19 coset NTT (2 columns)
     k, bcols = 19, 2
@@ -459,6 +466,66 @@ def check_field_kernels(dev, log, rng) -> tuple[dict, list]:
     rec["fr_add_sub"] = {**recs[cf.FIELD_FR], "fq": recs[cf.FIELD_FQ]}
 
     return rec, fails
+
+
+SWEEP_N = [1 << k for k in (12, 14, 16, 18, 20)]
+
+
+def _host_us(fn, calls: int = 300) -> float:
+    """Host microseconds a call of `fn` takes to enqueue its work: the
+    median over `calls` calls while the card is held busy (so that no call
+    waits for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_FILL_CYCLES)
+    ts = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return float(np.median(ts)) * 1e6
+
+
+def _fit(ms: list) -> dict:
+    """Least squares t = t0 + n c over SWEEP_N: t0 in ms, c in ns a row,
+    and c against the 96 bytes a row of K1 or K7 moves at the card's
+    memory rate."""
+    c, t0 = np.polyfit(np.array(SWEEP_N, float), np.array(ms, float), 1)
+    return dict(t0_ms=t0, c_ns=c * 1e6,
+                c_over_bytes=c * 1e-3 / (96 / HBM_BYTES_PER_S))
+
+
+def sweep_k1_k7(dev, log, rng) -> dict:
+    """K1 (Fr, row against row) and K7 (Fr add) timed at n = 2^12 .. 2^20,
+    each fitted to t = t0 + n c; then the host microseconds a call of K1's
+    and K7's wrappers takes at the window.  Phase 2 holds both kernels'
+    outputs against their plain versions."""
+    from zkevm_circuits_tpu_torch.crypto.field import fr
+    from zkevm_circuits_tpu_torch.ops import cuda_field as cf
+
+    F = fr()
+    a, b = (torch.as_tensor(_rand_fe(rng, SWEEP_N[-1], F.modulus), device=dev)
+            for _ in range(2))
+    out = {"n": SWEEP_N}
+    for key, fn in (("k1", lambda x, y: cf.mont_mul_cuda(x, y, cf.FIELD_FR)),
+                    ("k7", lambda x, y: cf.field_add_sub_cuda(x, y, cf.OP_ADD,
+                                                              cf.FIELD_FR))):
+        ms = [_time_ms(lambda: fn(a[:n], b[:n]), 100) for n in SWEEP_N]
+        out[key] = dict(ms=ms, **_fit(ms))
+        log(f"[sweep] {key}: " + " ".join(f"{n}:{t:.4f}" for n, t in zip(SWEEP_N, ms))
+            + f" ms; {json.dumps(_fit(ms))}")
+    w = 1 << 16
+    x, y, s = a[:w], b[:w], b[5]
+    out["host_us"] = {
+        "k1": _host_us(lambda: cf.mont_mul_cuda(x, y, cf.FIELD_FR)),
+        "k1_scalar": _host_us(lambda: cf.mont_mul_cuda(x, s, cf.FIELD_FR)),
+        "k7": _host_us(lambda: cf.field_add_sub_cuda(x, y, cf.OP_ADD, cf.FIELD_FR)),
+        "k7_scalar": _host_us(
+            lambda: cf.field_add_sub_cuda(x, s, cf.OP_SUB, cf.FIELD_FR)),
+    }
+    log(f"[sweep] host us a call at n={w}: {json.dumps(out['host_us'])}")
+    return out
 
 
 def _same_rows(p, q) -> int:

@@ -1,7 +1,9 @@
-"""The curve kernels' device arithmetic (csrc/bn254.cuh Fq32, csrc/curve.cu
-add/double) and field_add_sub's row (bn254.cuh fe_add_sub over 16-byte
-row access) compiled for the host with a C++ compiler, against Python
-integers and the plain versions of K5 and K6, exact bytes.
+"""The kernels' device arithmetic compiled for the host with a C++
+compiler, against Python integers and the plain versions of K5 and K6,
+exact bytes: the 8 x u32 Montgomery arithmetic of csrc/bn254.cuh over Fr
+and Fq, K1's row (csrc/field.cu, with either operand broadcast), the
+curve kernels' add and double (csrc/curve.cu) and field_add_sub's row
+(bn254.cuh fe_add_sub over 16-byte row access).
 
 The PTX carry-chain primitives (namespace cc in bn254.cuh) are replaced by
 C++ that keeps the carry flag in a variable, with the semantics of the
@@ -89,6 +91,13 @@ inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
 """
 
 _ENTRY = r"""
+extern "C" void k1_rows(int field, const uint64_t *a, const uint64_t *b,
+                        uint64_t *o, long n, int abc, int bbc) {
+  for (long i = 0; i < n; i++) {
+    if (field == 0) mont_mul_row<FrField>(a, b, o, i, abc, bbc);
+    else mont_mul_row<FqField>(a, b, o, i, abc, bbc);
+  }
+}
 extern "C" void fq_rows(int op, const uint64_t *a, const uint64_t *b,
                         uint64_t *o, long n) {
   for (long i = 0; i < n; i++) {
@@ -133,11 +142,16 @@ def _host_source() -> str:
     hdr = open(os.path.join(CSRC, "bn254.cuh")).read()
     a, b = hdr.index("namespace cc {"), hdr.index("}  // namespace cc")
     hdr = hdr[:a] + _CARRY + hdr[b + len("}  // namespace cc"):]
-    cu = open(os.path.join(CSRC, "curve.cu")).read()
-    dev = cu[cu.index("namespace {"):cu.index("template <int MODE>\n__global__")]
-    dev = dev.replace("namespace {", "namespace dev {", 1) + "}  // namespace dev\n"
+    dev = ""
+    for name, end in (("curve.cu", "template <int MODE>\n__global__"),
+                      ("field.cu", "template <class F>\n__global__")):
+        cu = open(os.path.join(CSRC, name)).read()
+        ns = name[:-3]
+        dev += (cu[cu.index("namespace {"):cu.index(end)].replace(
+            "namespace {", f"namespace {ns} {{", 1) + f"}}  // namespace {ns}\n"
+            + f"using namespace {ns};\n")
     return (_PRELUDE + hdr.replace("#pragma once", "") + "using namespace bn254;\n"
-            + dev + "using namespace dev;\n" + _ENTRY)
+            + dev + _ENTRY)
 
 
 @pytest.fixture(scope="module")
@@ -189,6 +203,49 @@ def test_fq32_matches_python_ints(lib, op):
     lib.fq_rows(code, _ptr(a), _ptr(b), _ptr(out), ctypes.c_long(len(x)))
     got = [int.from_bytes(r.tobytes(), "little") for r in out]
     assert got == [fn(u, v) for u, v in zip(x, y)]
+
+
+def _k1_values(p: int, seed: int, n: int) -> list[int]:
+    """n seeded values below p, led by 0, 1, p - 1 and values whose low
+    words are all 0xFFFFFFFF."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    edge = [0, 1, p - 1, (1 << 253) - 1, (1 << 224) - 1, (p >> 128 << 128) - 1,
+            (p >> 32 << 32) - 1, (1 << 32) - 1]
+    vals[:len(edge)] = edge
+    return vals
+
+
+@pytest.mark.parametrize("field", [0, 1])
+@pytest.mark.parametrize("bcast", ["rows", "a_row", "b_row"])
+def test_k1_product_matches_python_ints(lib, bcast, field):
+    """K1's row over Fr and Fq against Python ints: row against row on 10^4
+    seeded pairs, led by (0, 0), (1, 1), (p - 1, p - 1) and words of
+    0xFFFFFFFF against each of them; or a (a_row) or b (b_row) one
+    broadcast row (p - 1, 1, and a seeded value) against 1, 7 and 301
+    rows."""
+    p = FR_MODULUS if field == 0 else FQ_MODULUS
+    rinv = pow(R, -1, p)
+    x, y = _k1_values(p, 50 + field, 10_000), _k1_values(p, 60 + field, 10_000)
+    edge = x[:8]
+    x[8:8 + 64] = [u for u in edge for _ in edge]
+    y[8:8 + 64] = [v for _ in edge for v in edge]
+
+    def run(xs, ys, abc, bbc, n):
+        a, b = _u8(xs), _u8(ys)
+        out = np.zeros((n, 32), np.uint8)
+        lib.k1_rows(field, _ptr(a), _ptr(b), _ptr(out), ctypes.c_long(n), abc, bbc)
+        return [int.from_bytes(r.tobytes(), "little") for r in out]
+
+    if bcast == "rows":
+        assert run(x, y, 0, 0, len(x)) == [u * v * rinv % p for u, v in zip(x, y)]
+        return
+    for n in (1, 7, 301):
+        for s in (p - 1, 1, x[5000]):
+            if bcast == "a_row":
+                assert run([s], y[:n], 1, 0, n) == [s * v * rinv % p for v in y[:n]]
+            else:
+                assert run(x[:n], [s], 0, 1, n) == [u * s * rinv % p for u in x[:n]]
 
 
 _FE_OPS = {"add": (0, lambda x, y, p: (x + y) % p),

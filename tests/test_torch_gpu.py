@@ -50,13 +50,25 @@ def _rand_fe(seed, n, modulus):
 
 @pytest.mark.parametrize("fid", [cf.FIELD_FR, cf.FIELD_FQ])
 def test_k1_kernel_matches_plain(dev, fid):
+    """K1 against its plain version, byte for byte, at 1, 31, 4097, 2^16
+    and 2^16 + 3 rows: row against row, against a broadcast row either
+    side, and a against itself (the square); one launch a call; a row that
+    is not 16-byte aligned raises."""
     p = cf.MODULI[fid]
-    a = torch.as_tensor(_rand_fe(1, 4096, p), device=dev)
-    b = torch.as_tensor(_rand_fe(2, 4096, p), device=dev)
+    n_max = (1 << 16) + 3
+    a = torch.as_tensor(_rand_fe(1, n_max, p), device=dev)
+    b = torch.as_tensor(_rand_fe(2, n_max, p), device=dev)
+    for n in (1, 31, 4097, 1 << 16, n_max):
+        x, y = a[:n], b[:n]
+        for u, v in ((x, y), (x, b[7]), (b[2], y), (x, x)):
+            before = cf.LAUNCHES["mont_mul"]
+            assert torch.equal(cf.mont_mul_cuda(u, v, fid), cf.mont_mul_plain(u, v, fid)), n
+            assert cf.LAUNCHES["mont_mul"] == before + 1
     before = cf.LAUNCHES["mont_mul"]
     assert torch.equal(cf.mont_mul(a, b, fid), cf.mont_mul_plain(a, b, fid))
     assert cf.LAUNCHES["mont_mul"] == before + 1
-    assert torch.equal(cf.mont_mul_cuda(a, b[7], fid), cf.mont_mul_plain(a, b[7], fid))
+    with pytest.raises(ValueError, match="aligned"):
+        cf.mont_mul(a.view(-1)[8:8 + 32 * 16].view(16, 32), b[:16], fid)
 
 
 def test_k2_k3_kernels_match_plain(dev):

@@ -5,12 +5,11 @@
 // Values are Montgomery residues with R = 2^256.  Every function here takes
 // canonical inputs (< p) and returns canonical outputs.
 //
-// The field kernels' multiply (fe_mul, either field) is CIOS over 4 x u64
-// limbs with __umul64hi: 16 limb products for a*b, 16 for m*p and 4 for
-// the m's, all in registers.  Both BN254 moduli are < 2^254, so the running
-// sum stays below 2p and one conditional subtraction makes the result
-// canonical.  The curve kernels use the Fq32 arithmetic at the end of this
-// file instead: 8 x u32 words on PTX carry chains.
+// The field kernels' u64 helpers below (adc, sbb, mac, fe_add, fe_sub,
+// cond_sub_p, fe_mul) serve K3's REDC, K4's butterfly and field_add_sub's
+// add and subtract.  The other Montgomery products (K1, K2, K5, K6) are
+// the 8 x u32 form at the end of this file, on the integer pipe's carry
+// chains, instantiated once for each field.
 #pragma once
 #include <cstdint>
 
@@ -98,7 +97,8 @@ __device__ __forceinline__ Fe fe_sub(const Fe &a, const Fe &b, int f) {
   return d;
 }
 
-// Montgomery product a * b * 2^-256 mod p (CIOS)
+// Montgomery product a * b * 2^-256 mod p, CIOS over u64 limbs (K4 only:
+// its stages measured slower on the 8 x u32 product)
 __device__ __forceinline__ Fe fe_mul(const Fe &a, const Fe &b, int f) {
   const uint64_t p0 = P_LIMBS[f][0], p1 = P_LIMBS[f][1], p2 = P_LIMBS[f][2],
                  p3 = P_LIMBS[f][3];
@@ -182,7 +182,7 @@ __device__ __forceinline__ Fe fe_add_sub(int op, const Fe &a, const Fe &b,
 }
 
 // ---------------------------------------------------------------------------
-// Fq over 8 x u32 words on the integer pipe's carry chains (K5, K6)
+// Fr and Fq over 8 x u32 words on the integer pipe's carry chains
 // ---------------------------------------------------------------------------
 // The same 32-byte rows, read in place as eight little-endian u32 words.
 // A 32 x 32-bit partial product is two instructions, mad.lo and madc.hi,
@@ -203,6 +203,10 @@ __device__ __forceinline__ Fe fe_add_sub(int op, const Fe &a, const Fe &b,
 //
 // Instruction counts: a product is 128 + 128 multiply halves plus 8 for the
 // m's (264); a squaring 56 + 16 + 128 + 8 (208).
+//
+// K1 and K2 take Fr or Fq as FrField or FqField (a template argument:
+// one kernel instance a field); K5 and K6 take Fq through the fq_*
+// wrappers.
 //
 // The carry flag lives between the asm statements below: each is volatile,
 // so the compiler keeps their order, and nothing between two of them in a
@@ -278,26 +282,43 @@ __device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
 
 }  // namespace cc
 
-struct Fq32 {
+// A field as compile-time words: the modulus p (P0..P7, little-endian) and
+// -p^-1 mod 2^32 (NP0).  The functions below are templates over it, so one
+// kernel instance serves one field and nothing is chosen per element.
+struct FrField {
+  static constexpr uint32_t P0 = 0xf0000001u, P1 = 0x43e1f593u,
+                            P2 = 0x79b97091u, P3 = 0x2833e848u,
+                            P4 = 0x8181585du, P5 = 0xb85045b6u,
+                            P6 = 0xe131a029u, P7 = 0x30644e72u;
+  static constexpr uint32_t NP0 = 0xefffffffu;
+};
+struct FqField {
+  static constexpr uint32_t P0 = 0xd87cfd47u, P1 = 0x3c208c16u,
+                            P2 = 0x6871ca8du, P3 = 0x97816a91u,
+                            P4 = 0x8181585du, P5 = 0xb85045b6u,
+                            P6 = 0xe131a029u, P7 = 0x30644e72u;
+  static constexpr uint32_t NP0 = 0xe4866389u;
+};
+// the eight words F::X0..F::X7 as an array initialiser
+#define BN254_WORDS(F, X)                                                \
+  {F::X##0, F::X##1, F::X##2, F::X##3, F::X##4, F::X##5, F::X##6, F::X##7}
+
+struct Fe32 {
   uint32_t w[8];
 };
+using Fq32 = Fe32;
 
-// Fq's modulus, -p^-1 mod 2^32 and 2^256 mod p as u32 words
-constexpr uint32_t FQ_P0 = 0xd87cfd47u, FQ_P1 = 0x3c208c16u,
-                   FQ_P2 = 0x6871ca8du, FQ_P3 = 0x97816a91u,
-                   FQ_P4 = 0x8181585du, FQ_P5 = 0xb85045b6u,
-                   FQ_P6 = 0xe131a029u, FQ_P7 = 0x30644e72u;
-constexpr uint32_t FQ_NP0 = 0xe4866389u;
+// Fq's 2^256 mod p (Montgomery 1) as u32 words
 constexpr uint32_t FQ_ONE0 = 0xc58f0d9du, FQ_ONE1 = 0xd35d438du,
                    FQ_ONE2 = 0xf5c70b3du, FQ_ONE3 = 0x0a78eb28u,
                    FQ_ONE4 = 0x7879462cu, FQ_ONE5 = 0x666ea36fu,
                    FQ_ONE6 = 0x9a07df2fu, FQ_ONE7 = 0x0e0a77c1u;
 
 // x < 2p -> x mod p
-__device__ __forceinline__ Fq32 fq_reduce_once(const Fq32 &x) {
-  const uint32_t p[8] = {FQ_P0, FQ_P1, FQ_P2, FQ_P3,
-                         FQ_P4, FQ_P5, FQ_P6, FQ_P7};
-  Fq32 s;
+template <class F>
+__device__ __forceinline__ Fe32 reduce_once32(const Fe32 &x) {
+  const uint32_t p[8] = BN254_WORDS(F, P);
+  Fe32 s;
   s.w[0] = cc::sub_cc(x.w[0], p[0]);
 #pragma unroll
   for (int j = 1; j < 8; j++) s.w[j] = cc::subc_cc(x.w[j], p[j]);
@@ -307,19 +328,20 @@ __device__ __forceinline__ Fq32 fq_reduce_once(const Fq32 &x) {
   return s;
 }
 
-__device__ __forceinline__ Fq32 fq_add(const Fq32 &a, const Fq32 &b) {
-  Fq32 s;
+template <class F>
+__device__ __forceinline__ Fe32 add32(const Fe32 &a, const Fe32 &b) {
+  Fe32 s;
   s.w[0] = cc::add_cc(a.w[0], b.w[0]);
 #pragma unroll
   for (int j = 1; j < 7; j++) s.w[j] = cc::addc_cc(a.w[j], b.w[j]);
   s.w[7] = cc::addc(a.w[7], b.w[7]);  // a + b < 2p < 2^255: no carry out
-  return fq_reduce_once(s);
+  return reduce_once32<F>(s);
 }
 
-__device__ __forceinline__ Fq32 fq_sub(const Fq32 &a, const Fq32 &b) {
-  const uint32_t p[8] = {FQ_P0, FQ_P1, FQ_P2, FQ_P3,
-                         FQ_P4, FQ_P5, FQ_P6, FQ_P7};
-  Fq32 d;
+template <class F>
+__device__ __forceinline__ Fe32 sub32(const Fe32 &a, const Fe32 &b) {
+  const uint32_t p[8] = BN254_WORDS(F, P);
+  Fe32 d;
   d.w[0] = cc::sub_cc(a.w[0], b.w[0]);
 #pragma unroll
   for (int j = 1; j < 8; j++) d.w[j] = cc::subc_cc(a.w[j], b.w[j]);
@@ -332,9 +354,9 @@ __device__ __forceinline__ Fq32 fq_sub(const Fq32 &a, const Fq32 &b) {
 }
 
 // t[0..15] (a 512-bit value < p^2) -> t * 2^-256 mod p
-__device__ __forceinline__ Fq32 fq_redc(const uint32_t t[16]) {
-  const uint32_t p[8] = {FQ_P0, FQ_P1, FQ_P2, FQ_P3,
-                         FQ_P4, FQ_P5, FQ_P6, FQ_P7};
+template <class F>
+__device__ __forceinline__ Fe32 redc32(const uint32_t t[16]) {
+  const uint32_t p[8] = BN254_WORDS(F, P);
   // u = u[0..7] + u8 2^256 is the window: after step i it holds
   // (t mod 2^(256 + 32 (i + 1)) + M_i p) / 2^(32 (i + 1)) < 2^257
   uint32_t u[8], u8 = 0;
@@ -342,7 +364,7 @@ __device__ __forceinline__ Fq32 fq_redc(const uint32_t t[16]) {
   for (int j = 0; j < 8; j++) u[j] = t[j];
 #pragma unroll
   for (int i = 0; i < 8; i++) {
-    const uint32_t m = u[0] * FQ_NP0;
+    const uint32_t m = u[0] * F::NP0;
     // even words of p: columns 0..7, carry into u8
     u[0] = cc::mad_lo_cc(m, p[0], u[0]);
     u[1] = cc::madc_hi_cc(m, p[0], u[1]);
@@ -368,14 +390,15 @@ __device__ __forceinline__ Fq32 fq_redc(const uint32_t t[16]) {
     u[7] = cc::add_cc(u8, t[8 + i]);
     u8 = cc::addc(0u, 0u);
   }
-  Fq32 r;  // < 2p < 2^255, so u8 is 0 here
+  Fe32 r;  // < 2p < 2^255, so u8 is 0 here
 #pragma unroll
   for (int j = 0; j < 8; j++) r.w[j] = u[j];
-  return fq_reduce_once(r);
+  return reduce_once32<F>(r);
 }
 
 // Montgomery product a * b * 2^-256 mod p
-__device__ __forceinline__ Fq32 fq_mul(const Fq32 &a, const Fq32 &b) {
+template <class F>
+__device__ __forceinline__ Fe32 mul32(const Fe32 &a, const Fe32 &b) {
   uint32_t t[16];
 #pragma unroll
   for (int j = 0; j < 16; j++) t[j] = 0;
@@ -403,11 +426,12 @@ __device__ __forceinline__ Fq32 fq_mul(const Fq32 &a, const Fq32 &b) {
     t[i + 7] = cc::madc_lo_cc(a.w[7], bi, t[i + 7]);
     t[i + 8] = cc::madc_hi(a.w[7], bi, t[i + 8]);
   }
-  return fq_redc(t);
+  return redc32<F>(t);
 }
 
 // Montgomery square a^2 * 2^-256 mod p
-__device__ __forceinline__ Fq32 fq_sqr(const Fq32 &a) {
+template <class F>
+__device__ __forceinline__ Fe32 sqr32(const Fe32 &a) {
   uint32_t t[16];
 #pragma unroll
   for (int j = 0; j < 16; j++) t[j] = 0;
@@ -452,7 +476,21 @@ __device__ __forceinline__ Fq32 fq_sqr(const Fq32 &a) {
   }
   t[14] = cc::madc_lo_cc(a.w[7], a.w[7], t[14]);
   t[15] = cc::madc_hi(a.w[7], a.w[7], t[15]);
-  return fq_redc(t);
+  return redc32<F>(t);
+}
+
+// the curve kernels' Fq (K5, K6)
+__device__ __forceinline__ Fq32 fq_add(const Fq32 &a, const Fq32 &b) {
+  return add32<FqField>(a, b);
+}
+__device__ __forceinline__ Fq32 fq_sub(const Fq32 &a, const Fq32 &b) {
+  return sub32<FqField>(a, b);
+}
+__device__ __forceinline__ Fq32 fq_mul(const Fq32 &a, const Fq32 &b) {
+  return mul32<FqField>(a, b);
+}
+__device__ __forceinline__ Fq32 fq_sqr(const Fq32 &a) {
+  return sqr32<FqField>(a);
 }
 
 __device__ __forceinline__ bool fq_is_zero(const Fq32 &a) {
@@ -467,6 +505,27 @@ __device__ __forceinline__ Fq32 fq_one_mont() {
 
 __device__ __forceinline__ Fq32 fq_zero() {
   return Fq32{{0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
+}
+
+// the four u64 limbs of a row as its eight u32 words, and back: a u64 is
+// a pair of 32-bit registers, so these move nothing
+__device__ __forceinline__ Fe32 to32(const Fe &x) {
+  Fe32 r;
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    r.w[2 * j] = static_cast<uint32_t>(x.v[j]);
+    r.w[2 * j + 1] = static_cast<uint32_t>(x.v[j] >> 32);
+  }
+  return r;
+}
+
+__device__ __forceinline__ Fe from32(const Fe32 &x) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 4; j++)
+    r.v[j] = static_cast<uint64_t>(x.w[2 * j]) |
+             (static_cast<uint64_t>(x.w[2 * j + 1]) << 32);
+  return r;
 }
 
 // row `row` of a (..., 32) u8 tensor, read as four u64 loads

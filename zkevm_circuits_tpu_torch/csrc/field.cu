@@ -11,21 +11,33 @@
 //    (_butterfly_kernel), one radix-2 DIT stage over Fr:
 //    (lo + hi * tw, lo - hi * tw).
 //
-// What bounds them on the H100: each thread owns one element and keeps the
-// whole Montgomery product in registers (36 64x64-bit products, about 140
-// 32-bit multiply-adds), so per element they move 96 bytes (K1, K2) or 284
-// bytes (K3) through device memory against a few hundred integer
-// instructions: memory bound at the sizes the prover uses.  The design
-// therefore reads each operand once, keeps no intermediate in memory (the
-// TPU kernels' digit planes and Toeplitz matrices do not exist here), reads
-// the u8 rows in place as u64 limbs, and lets K2 index the (n1, n2) twiddle
-// table instead of reading a broadcast copy of it.
+// What bounds them on the H100: per element they move 96 bytes (K1, K2) or
+// 284 bytes (K3) through device memory against one Montgomery product
+// (264 32-bit multiply halves) or a REDC: memory bound at the sizes the
+// prover uses.  The design therefore reads each operand once, keeps no
+// intermediate in memory (the TPU kernels' digit planes and Toeplitz
+// matrices do not exist here), reads the u8 rows in place, and lets K2
+// index the (n1, n2) twiddle table instead of reading a broadcast copy of
+// it.  K1 and K2 multiply with bn254.cuh's 8 x u32 product on PTX carry
+// chains (one kernel instance a field, chosen at launch); K4 keeps the u64
+// CIOS fe_mul, which its stages ran faster (the u32 product measured 10%
+// slower at stage 10 of a k=19 column); K3 keeps its own u64 REDC.
+//
+// K1 at the quotient's 2^16-row window is one wave of a quarter of the
+// card's threads: 6 MB of rows against 17 M multiply halves, and the
+// launch's own latency of the same order.  So its rows move as two
+// 16-byte vectors each (fe_load2 / fe_store2; the wrapper refuses a row
+// that is not 16-byte aligned), a broadcast operand is one row that every
+// thread reads, and a block is 128 threads, one row each: measured best or
+// equal at 2^12 to 2^20 rows against 256 threads a block, two rows a
+// thread (the second row's loads issued before the first product) and a
+// product split over a pair of lanes.
 //
 // K4 is bound by bytes too: per butterfly it reads lo and hi and writes two
 // rows (128 bytes in the stage form, 160 in the row form, which also reads
 // a twiddle row) against one Montgomery product and an add and a subtract.
 // One thread owns one butterfly: it reads the two 32-byte rows in place as
-// four u64 limbs, reuses K1's device product and bn254.cuh's fe_add and
+// four u64 limbs, multiplies with bn254.cuh's fe_mul, adds with fe_add and
 // fe_sub, and keeps the product in registers.  In the stage form (the NTT
 // ladder) the thread computes its rows and its twiddle's index from its
 // butterfly index, as K2 does, so the stage reads the (half, 32) table of
@@ -59,20 +71,43 @@ namespace {
 
 constexpr int THREADS = 256;
 
-inline unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + THREADS - 1) / THREADS);
+inline unsigned blocks_of(int64_t n, int64_t per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
-// K1: out[i] = a[i or 0] * b[i or 0] (Montgomery), field f
-__global__ void mont_mul_kernel(const uint64_t *__restrict__ a,
-                                const uint64_t *__restrict__ b,
-                                uint64_t *__restrict__ out, int64_t n, int f,
-                                int a_bcast, int b_bcast) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fe x = fe_load(a, a_bcast ? 0 : i);
-  Fe y = fe_load(b, b_bcast ? 0 : i);
-  fe_store(out, i, fe_mul(x, y, f));
+inline unsigned blocks_for(int64_t n) { return blocks_of(n, THREADS); }
+
+// a * b of two u64-limb rows through the 8 x u32 product
+template <class F>
+__device__ __forceinline__ Fe fe_mont_mul(const Fe &a, const Fe &b) {
+  return from32(mul32<F>(to32(a), to32(b)));
+}
+
+// K1's row i: out[i] = a[i or 0] * b[i or 0]
+template <class F>
+__device__ __forceinline__ void mont_mul_row(const uint64_t *__restrict__ a,
+                                             const uint64_t *__restrict__ b,
+                                             uint64_t *__restrict__ out,
+                                             int64_t i, int a_bcast,
+                                             int b_bcast) {
+  const Fe x = fe_load2(a, a_bcast ? 0 : i);
+  const Fe y = fe_load2(b, b_bcast ? 0 : i);
+  fe_store2(out, i, fe_mont_mul<F>(x, y));
+}
+
+constexpr int K1_THREADS = 128;
+
+// K1: out[i] = a[i or 0] * b[i or 0] (Montgomery) over field F, one row a
+// thread
+template <class F>
+__global__ void __launch_bounds__(K1_THREADS)
+    mont_mul_kernel(const uint64_t *__restrict__ a,
+                    const uint64_t *__restrict__ b,
+                    uint64_t *__restrict__ out, int64_t n, int a_bcast,
+                    int b_bcast) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * K1_THREADS + threadIdx.x;
+  if (i < n) mont_mul_row<F>(a, b, out, i, a_bcast, b_bcast);
 }
 
 // K2: y viewed as (n1, nb, n2) rows; out[i1, b, j2] = y[i1, b, j2] * tw[i1, j2]
@@ -86,7 +121,7 @@ __global__ void twiddle_mul_kernel(const uint64_t *__restrict__ y,
   int64_t i1 = r / (nb * n2);
   Fe x = fe_load(y, r);
   Fe w = fe_load(tw, i1 * n2 + j2);
-  fe_store(out, r, fe_mul(x, w, FIELD_FR));
+  fe_store(out, r, fe_mont_mul<FrField>(x, w));
 }
 
 // K3: t (rows, 63) int32 exact digit sums, T = sum t[d] 2^(8d) < 2^272 p.
@@ -194,11 +229,18 @@ extern "C" {
 
 int zk_mont_mul(const void *a, const void *b, void *out, int64_t n, int field,
                 int a_bcast, int b_bcast, void *stream) {
-  if (n > 0)
-    mont_mul_kernel<<<blocks_for(n), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint64_t *>(a), static_cast<const uint64_t *>(b),
-        static_cast<uint64_t *>(out), n, field, a_bcast, b_bcast);
+  if (n > 0) {
+    const auto *pa = static_cast<const uint64_t *>(a);
+    const auto *pb = static_cast<const uint64_t *>(b);
+    auto *po = static_cast<uint64_t *>(out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (field == FIELD_FQ)
+      mont_mul_kernel<FqField><<<blocks_of(n, K1_THREADS), K1_THREADS, 0, st>>>(
+          pa, pb, po, n, a_bcast, b_bcast);
+    else
+      mont_mul_kernel<FrField><<<blocks_of(n, K1_THREADS), K1_THREADS, 0, st>>>(
+          pa, pb, po, n, a_bcast, b_bcast);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

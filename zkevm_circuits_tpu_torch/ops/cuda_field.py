@@ -158,8 +158,17 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: int) -> torch.Tensor
     return from_limbs(mont_mul_limbs(to_limbs(a), to_limbs(b), cs))
 
 
+@functools.cache
+def _entry(name: str):
+    """The C entry point `name`, looked up once (the first lookup builds and
+    loads the library): a call then takes no lock."""
+    return getattr(build.lib(), name)
+
+
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream, as its raw handle (building a
+    torch.cuda.Stream object for it costs a few microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _check_rows(t: torch.Tensor, name: str, dtype=torch.uint8, width=32,
@@ -174,23 +183,42 @@ def _check_rows(t: torch.Tensor, name: str, dtype=torch.uint8, width=32,
                          f"aligned tensor")
 
 
-def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: int) -> torch.Tensor:
-    """K1 on the card.  A single-element operand is broadcast in the
-    kernel; any other broadcast is materialised first."""
+def _operands(a: torch.Tensor, b: torch.Tensor, name: str):
+    """K1's and field_add_sub's broadcast rule: (shape, a, b, a_bc, b_bc).
+    A single-row operand that the other broadcasts over is passed as its
+    one row (a_bc, b_bc), any other broadcast is materialised and a
+    non-contiguous operand made contiguous; an operand that already has
+    the output's shape and is contiguous is passed as it is."""
     if a.device != b.device:
-        raise ValueError("mont_mul: operands on different devices")
+        raise ValueError(f"{name}: operands on different devices")
+    if a.shape == b.shape:
+        return a.shape, a.contiguous(), b.contiguous(), False, False
+    # one row under a wider operand: the wider one's shape, no broadcast
+    # to compute (a row's leading dimensions are all 1)
+    if b.numel() == 32 and a.dim() >= b.dim():
+        return a.shape, a.contiguous(), b.contiguous(), False, True
+    if a.numel() == 32 and b.dim() >= a.dim():
+        return b.shape, a.contiguous(), b.contiguous(), True, False
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a_bc = a.numel() == 32 and shape != a.shape
     b_bc = b.numel() == 32 and shape != b.shape
-    a = a.contiguous() if a_bc else a.expand(shape).contiguous()
-    b = b.contiguous() if b_bc else b.expand(shape).contiguous()
-    _check_rows(a, "mont_mul a")
-    _check_rows(b, "mont_mul b")
-    out = torch.empty(shape, dtype=torch.uint8, device=a.device)
-    n = out.numel() // 32
-    build.check(build.lib().zk_mont_mul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field, int(a_bc),
-        int(b_bc), _stream()), "mont_mul")
+    a = a.contiguous() if a_bc or a.shape == shape else a.expand(shape).contiguous()
+    b = b.contiguous() if b_bc or b.shape == shape else b.expand(shape).contiguous()
+    return shape, a, b, a_bc, b_bc
+
+
+def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: int) -> torch.Tensor:
+    """K1 on the card: one launch, one new output.  A single-row operand is
+    broadcast in the kernel; any other broadcast is materialised first.
+    Raises on a CPU operand, a row that is not 16-byte aligned or a failed
+    launch."""
+    out_shape, a, b, a_bc, b_bc = _operands(a, b, "mont_mul")
+    _check_rows(a, "mont_mul a", align=16)
+    _check_rows(b, "mont_mul b", align=16)
+    out = a.new_empty(out_shape)
+    build.check(_entry("zk_mont_mul")(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), out.numel() // 32, field,
+        a_bc, b_bc, _stream()), "mont_mul")
     LAUNCHES["mont_mul"] += 1
     return out
 
@@ -220,7 +248,7 @@ def twiddle_mul_cuda(y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     _check_rows(y, "twiddle_mul y")
     _check_rows(tw, "twiddle_mul tw")
     out = torch.empty_like(y)
-    build.check(build.lib().zk_twiddle_mul(
+    build.check(_entry("zk_twiddle_mul")(
         y.data_ptr(), tw.data_ptr(), out.data_ptr(), n1 * nb * n2, nb, n2,
         _stream()), "twiddle_mul")
     LAUNCHES["twiddle_mul"] += 1
@@ -257,7 +285,7 @@ def redc34_cuda(t32: torch.Tensor) -> torch.Tensor:
     _check_rows(t32, "redc34 t", dtype=torch.int32, width=63)
     rows = t32.numel() // 63
     out = torch.empty(*t32.shape[:-1], 32, dtype=torch.uint8, device=t32.device)
-    build.check(build.lib().zk_redc34(
+    build.check(_entry("zk_redc34")(
         t32.data_ptr(), out.data_ptr(), rows, _stream()), "redc34")
     LAUNCHES["redc34"] += 1
     return out
@@ -292,7 +320,7 @@ def butterfly_stage_cuda(lo: torch.Tensor, hi: torch.Tensor,
     for t, name in ((lo, "lo"), (hi, "hi"), (tw, "tw")):
         _check_rows(t, f"butterfly_stage {name}")
     out_lo, out_hi = torch.empty_like(lo), torch.empty_like(lo)
-    build.check(build.lib().zk_butterfly_rows(
+    build.check(_entry("zk_butterfly_rows")(
         lo.data_ptr(), hi.data_ptr(), tw.data_ptr(), out_lo.data_ptr(),
         out_hi.data_ptr(), lo.numel() // 32, _stream()), "butterfly_stage")
     LAUNCHES["butterfly_stage"] += 1
@@ -337,7 +365,7 @@ def dit_stage_cuda(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     _check_rows(x, "dit_stage x")
     _check_rows(tw, "dit_stage tw")
     out = torch.empty_like(x)
-    build.check(build.lib().zk_dit_stage(
+    build.check(_entry("zk_dit_stage")(
         x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.numel() // 64, log_n, s,
         _stream()), "butterfly_stage")
     LAUNCHES["butterfly_stage"] += 1
@@ -363,21 +391,13 @@ ADD_SUB_COUNTER = {FIELD_FR: "fr_add_sub", FIELD_FQ: "fq_add_sub"}
 def _add_sub(a: torch.Tensor, b: torch.Tensor | None, op: int, field: int,
              launch) -> torch.Tensor:
     """Shape logic of field_add_sub around `launch(a, b, out, op, field,
-    a_bc, b_bc)`, K1's broadcast rule: a single-row operand that the other
-    broadcasts over is passed as its one row (a_bc, b_bc), any other
-    broadcast is materialised, a non-contiguous operand made contiguous.
-    Neg reads `a` only (b is None).  One output, a new tensor."""
+    a_bc, b_bc)`, K1's broadcast rule (_operands).  Neg reads `a` only (b
+    is None).  One output, a new tensor."""
     if op == OP_NEG:
-        shape, a_bc, b_bc = a.shape, False, False
+        shape, a, a_bc, b_bc = a.shape, a.contiguous(), False, False
     else:
-        if a.device != b.device:
-            raise ValueError("field_add_sub: operands on different devices")
-        shape = torch.broadcast_shapes(a.shape, b.shape)
-        a_bc = a.numel() == 32 and shape != a.shape
-        b_bc = b.numel() == 32 and shape != b.shape
-        b = b.contiguous() if b_bc else b.expand(shape).contiguous()
-    a = a.contiguous() if a_bc else a.expand(shape).contiguous()
-    out = torch.empty(shape, dtype=torch.uint8, device=a.device)
+        shape, a, b, a_bc, b_bc = _operands(a, b, "field_add_sub")
+    out = a.new_empty(shape)
     launch(a, b, out, op, field, a_bc, b_bc)
     return out
 
@@ -397,9 +417,9 @@ def _add_sub_cuda_launch(a, b, out, op, field, a_bc, b_bc):
     _check_rows(a, "field_add_sub a", align=16)
     if b is not None:
         _check_rows(b, "field_add_sub b", align=16)
-    build.check(build.lib().zk_field_add_sub(
+    build.check(_entry("zk_field_add_sub")(
         a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        out.numel() // 32, field, op, int(a_bc), int(b_bc), _stream()),
+        out.numel() // 32, field, op, a_bc, b_bc, _stream()),
         "field_add_sub")
     LAUNCHES[ADD_SUB_COUNTER[field]] += 1
 

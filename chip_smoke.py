@@ -16,7 +16,7 @@ Phases, one line each (the process exits non-zero on any failure):
      PyTorch version on the card, byte for byte, on seeded inputs at the
      main path's shapes, both timed with CUDA events, beside the bound
      computed from the inputs; the DFT-pass int8 matmul timed beside them;
-  3. twenty-three paths, each with the launch counts set to 0 just
+  3. twenty-four paths, each with the launch counts set to 0 just
      before it and read, with the path's seconds and the device memory
      still allocated (all of it, after a garbage collection, and the
      NTT's module-level cache), just after it; a prove given `timings`
@@ -24,7 +24,7 @@ Phases, one line each (the process exits non-zero on any failure):
      if a kernel the path names was not launched on it (K4's NTT stage
      form on entry_k10 and the two mesh paths, K5 and K6 on msm_grid, K1
      and K5 on entry_k10, every other kernel, both forms of K5 and K7's
-     fr_add_sub included, on the other twenty):
+     fr_add_sub included, on the other twenty-one):
      demo_k5     the k=5 DemoCircuit: its sha256 equals the reference's
                  proof (golden), the verifier accepts it and rejects a
                  wrong instance and a corrupted witness;
@@ -126,6 +126,19 @@ Phases, one line each (the process exits non-zero on any failure):
                       gen_batch's batch hash; a second
                       gen_compression_proof from the proof cache, equal
                       and with no launch;
+     super_full_k13   the chunk's whole statement at k=13, full width
+                      (service.bench_circuits.super_full_prove_bench):
+                      the SuperCircuit over super_full_workload's signed
+                      transaction with the PI circuit and its instance,
+                      the two-level MPT (storage subtries and the account
+                      trie, each with its Poseidon table; the roots
+                      copy-bound into PI's state-root bytes) and Sig with
+                      its MulMod rows on, the fullest region >= 85% of its
+                      rows: SRS, keygen, prove under the Poseidon
+                      transcript, verify with the PI instance, per-phase
+                      seconds, resident and peak memory, every region's
+                      fill; the instance with post_state_root + 1 and a
+                      flipped byte of the last evaluation rejected;
      recursion_layer1 the in-circuit EC compression of the k=5 demo's
                       Poseidon-transcript proof (tests/test_pipeline.py:
                       40): recursion.pipeline.LayerProver (the card)
@@ -1360,6 +1373,73 @@ def prove_super_full(dev, log, gpu: str, chunk: dict) -> list:
     return fails
 
 
+SUPER_FULL_K = 13
+
+
+def prove_super_full_k13(dev, log, gpu: str) -> list:
+    """The chunk's whole statement at k=SUPER_FULL_K = 13 (the least k
+    that holds one signature's MulMod rows), full width, over
+    service.bench_circuits.super_full_workload: super_workload's signed
+    transactions (one at k=13), and the SuperCircuit with public_data,
+    accounts_before and with_sig on, so the PI circuit's instance, the
+    storage-subtrie and account-trie MPT circuits with their Poseidon
+    tables (the account trie's roots copy-bound into PI's state-root
+    bytes), Sig and its MulMod rows and every other region of super_k12
+    are on.  Through super_full_prove_bench: SRS, keygen, prove under the
+    Poseidon transcript, verify with the PI instance.  Logs the workload
+    and every region's rows and fill, the shapes and k_ext, the seconds
+    with both phase dicts, resident and peak memory and the proof's
+    bytes; fails unless the proof verifies, the instance of the same
+    PublicData with post_state_root + 1 is rejected, the proof with one
+    byte of its last evaluation flipped is rejected, Sig, both MPT
+    circuits, their Poseidon tables and PI are on, and the fullest region
+    is at SUPER_FILL or more."""
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.crypto.params import FR_MODULUS
+    from zkevm_circuits_tpu_torch.plonk.verifier import verify
+    from zkevm_circuits_tpu_torch.poly.transcript import PoseidonReader
+    from zkevm_circuits_tpu_torch.service.bench_circuits import (
+        SUPER_FILL, super_full_prove_bench)
+
+    r = super_full_prove_bench(SUPER_FULL_K, seed=SEED, device=dev,
+                               log=lambda m: None)
+    w, k, pd, proof, vk = r["workload"], r["k"], r["public_data"], r["proof"], r["vk"]
+    name = f"super_full k={k}"
+    log(f"[{name}] card={gpu!r} workload={json.dumps(w)}")
+    log(f"[{name}] shapes={json.dumps(r['shapes'])} k_ext={r['k_ext']} "
+        f"regions={json.dumps(r['regions'])} instance={r['instance']}")
+    log(f"[{name}] card={gpu!r} workload {w['workload_s']:.2f} s srs "
+        f"{r['srs_s']:.2f} s keygen {r['keygen_s']:.2f} s prove "
+        f"{r['prove_s']:.2f} s verify {r['verify_s']:.2f} s ok={r['ok']} "
+        f"proof_bytes={r['proof_bytes']} resident_gb={r['resident_gb']:.2f} "
+        f"peak_mem_gb={r['peak_gb']:.2f}")
+    for phase in ("prove", "keygen"):
+        log(f"[{name}] {phase} phases (s, card={gpu!r}): "
+            f"{_phase_json(r[phase + '_phases'])}")
+    post = int.from_bytes(pd.post_state_root, "big")
+    bad_pd = dataclasses.replace(
+        pd, post_state_root=((post + 1) % FR_MODULUS).to_bytes(32, "big"))
+    t0 = time.perf_counter()
+    bent_ok = verify(vk, [bad_pd.instance()], proof,
+                     transcript=PoseidonReader(proof))
+    bad = _flip(proof, len(proof) - 136)
+    flipped_ok = verify(vk, [r["instance"]], bad, transcript=PoseidonReader(bad))
+    log(f"[{name}] post_state_root+1 verify={bent_ok} flipped byte "
+        f"verify={flipped_ok} ({time.perf_counter() - t0:.2f} s)")
+    fails = [] if r["ok"] else [f"{name}: the proof did not verify with its PI instance"]
+    if bent_ok:
+        fails.append(f"{name}: the instance with post_state_root + 1 was accepted")
+    if flipped_ok:
+        fails.append(f"{name}: the proof with a flipped byte was accepted")
+    off = [region for region, on in r["regions"].items() if not on]
+    if off:
+        fails.append(f"{name}: regions off: {off}")
+    if max(w["fill"].values()) < SUPER_FILL:
+        fails.append(f"{name} workload filled {w['fill']}")
+    return fails
+
+
 def _flip(data: bytes, at: int) -> bytes:
     bad = bytearray(data)
     bad[at] ^= 1
@@ -1963,6 +2043,8 @@ def main() -> int:
     drive_path("recursion_chunk",
                lambda: prove_recursion_chunk(dev, log, gpu, chunk), single)
     chunk.clear()
+    drive_path(f"super_full_k{SUPER_FULL_K}",
+               lambda: prove_super_full_k13(dev, log, gpu), single)
     drive_path("recursion_layer1",
                lambda: prove_recursion_layer1(dev, log, gpu), single)
     drive_path("recursion_fold", lambda: prove_recursion_fold(dev, log, gpu), single)

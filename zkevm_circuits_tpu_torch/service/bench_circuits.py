@@ -39,6 +39,12 @@ prover, service/prover.py's ChunkProver: the SuperCircuit over seeded
 signed transactions of looping contracts that also run CALLDATACOPY,
 EXP, MULMOD/ADDMOD and SHA3 (`super_workload`), the fullest of its
 regions (`super_rows`) filling at least SUPER_FILL of its rows.
+
+`super_full_prove_bench(k, seed)` proves the chunk's whole statement:
+the SuperCircuit with the PI circuit and its instance, the two-level MPT
+whose roots PI's state-root bytes are bound to, and every transaction's
+signature verified in-circuit, over `super_full_workload` (its regions
+counted by `super_full_rows`), under the Poseidon transcript.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from ..circuits.exp import ExpCircuit, ExpParams
 from ..circuits.keccak import ROWS_PER_PERM, Z_PER_ROW
 from ..circuits.modexp import ModExpCircuit, ModExpEvent, modexp_steps
 from ..circuits.mpt import MptCircuit
+from ..circuits.pi import N_PADDED, N_PI_BYTES, PublicData
 from ..circuits.poseidon import PoseidonCircuit
 from ..circuits.rlp import RlpCircuit
 from ..circuits.sha256 import ROWS_PER_BLOCK, Sha256Circuit
@@ -373,13 +380,18 @@ def evm_workload(seed: int, k: int):
     return b, stats
 
 
-def _prove_verify(make_circuit, k: int, dev, poseidon: bool = False) -> dict:
+def _prove_verify(make_circuit, k: int, dev, poseidon: bool = False,
+                  instances: list | None = None) -> dict:
     """SRS, keygen, prove and verify of make_circuit() at degree `k` on
     `dev`, each timed (the device synchronised after the SRS); under the
-    Poseidon transcript when `poseidon`, else Blake2b.
+    Poseidon transcript when `poseidon`, else Blake2b; `instances` (the
+    circuit's instance columns, none by default) go to both prove and
+    verify.
 
-    Returns {"k", "srs_s", "keygen_s", "prove_s", "verify_s", "ok",
-    "proof_bytes", "proof", "keygen_phases", "prove_phases", "cs"}."""
+    Returns {"k", "k_ext", "srs_s", "keygen_s", "prove_s", "verify_s",
+    "ok", "proof_bytes", "proof", "vk", "keygen_phases", "prove_phases",
+    "cs"}."""
+    instances = instances or []
     t0 = time.perf_counter()
     srs = Srs.unsafe_setup(k, tau=0xB_E2C4, device=dev)
     if dev.type == "cuda":
@@ -391,18 +403,18 @@ def _prove_verify(make_circuit, k: int, dev, poseidon: bool = False) -> dict:
     keygen_s = time.perf_counter() - t0
     prove_phases: dict = {}
     t0 = time.perf_counter()
-    proof = prove(pk, make_circuit(), [], srs, rng=np.random.default_rng(7),
+    proof = prove(pk, make_circuit(), instances, srs, rng=np.random.default_rng(7),
                   device=dev, timings=prove_phases,
                   transcript=PoseidonTranscript() if poseidon else None)
     prove_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ok = verify(vk, [], proof,
+    ok = verify(vk, instances, proof,
                 transcript=PoseidonReader(proof) if poseidon else None)
     verify_s = time.perf_counter() - t0
     return {
-        "k": k, "srs_s": srs_s, "keygen_s": keygen_s,
+        "k": k, "k_ext": pk.k_ext, "srs_s": srs_s, "keygen_s": keygen_s,
         "prove_s": prove_s, "verify_s": verify_s, "ok": bool(ok),
-        "proof_bytes": len(proof), "proof": proof, "cs": pk.vk.cs,
+        "proof_bytes": len(proof), "proof": proof, "vk": vk, "cs": pk.vk.cs,
         "keygen_phases": keygen_phases, "prove_phases": prove_phases,
     }
 
@@ -896,15 +908,18 @@ def super_params(txs) -> SuperParams:
                     max_calldata=sum(len(tx.data) for tx in txs)))
 
 
-def super_rows(b: CircuitInputBuilder, codes, txs, k: int) -> dict:
+def super_rows(b: CircuitInputBuilder, codes, txs, k: int,
+               keccak_extra: list | None = None) -> dict:
     """{region: (rows used, rows it may use)} of the SuperCircuit over
     the witness (b, codes, txs) under super_params(txs) at degree `k`,
     each counted as that sub-circuit's own fit check counts it.  Keccak
-    is on when the builder hashed anything with SHA3; it then hashes every
-    code, each transaction's sign payload and signed envelope, and the
-    SHA3 inputs, 200 rows a permutation."""
+    is on when the builder hashed anything with SHA3, or when
+    `keccak_extra` (the messages other sub-circuits hash) is given; it
+    then hashes every code, each transaction's sign payload and signed
+    envelope, the SHA3 inputs and `keccak_extra`, 200 rows a
+    permutation."""
     cap = usable_rows(1 << k)
-    keccak = bool(b.sha3_inputs)
+    keccak = bool(b.sha3_inputs) or keccak_extra is not None
     pad = (lambda n: 136 - n % 136) if keccak else (lambda n: 0)
     rows = {
         "state": (len(b.rws.rws), cap - 8),
@@ -919,10 +934,45 @@ def super_rows(b: CircuitInputBuilder, codes, txs, k: int) -> dict:
     if keccak:
         msgs = [c.to_bytes() for c in codes]
         msgs += [tx.sign_payload() for tx in txs] + [tx.rlp_signed() for tx in txs]
-        msgs += list(b.sha3_inputs)
+        msgs += list(b.sha3_inputs) + list(keccak_extra or [])
         perms = sum(len(m) // 136 + 1 for m in msgs)
         rows["keccak"] = (perms * ROWS_PER_PERM, cap - 64 // Z_PER_ROW)
     return rows
+
+
+def _call_fresh_contract(state, b, sender: int, addr: int, code, value: int,
+                         calldata: bytes):
+    """Copies of the StateDB `state` and the builder `b` after `sender`,
+    holding 10**18 wei, calls a fresh contract at `addr` holding `code`
+    with `value` and `calldata` (traced, then replayed with the code hash
+    carried).  Returns (state, builder, code hash)."""
+    raw = code.to_bytes()
+    code_hash = int.from_bytes(keccak256(raw), "big")
+    st, bb = copy.deepcopy(state), copy.deepcopy(b)
+    st.accounts[sender] = Account(balance=10**18)
+    st.accounts[addr] = Account(code=raw)
+    bb.accounts[sender] = AccountState(balance=10**18)
+    bb.accounts[addr] = AccountState(code_hash=code_hash)
+    tr = Interpreter(st).run_tx(Tx(from_addr=sender, to=addr, gas=SUPER_GAS,
+                                   value=value, data=calldata))
+    assert not tr.failed, "workload transaction failed"
+    bb.handle_tx(dict(from_addr=sender, to_addr=addr, value=value,
+                      calldata=calldata, code_hash=code_hash),
+                 tr, code_db={addr: raw})
+    return st, bb, code_hash
+
+
+def _super_stats(b: CircuitInputBuilder, txs, k: int, rows: dict) -> dict:
+    """The workload's transactions, steps, RW rows, usable rows, each
+    region's rows and fill, and the builder's event counts."""
+    return {
+        "txs": len(txs), "steps": len(b.steps), "rw_rows": len(b.rws.rws),
+        "usable_rows": usable_rows(1 << k),
+        "rows": {name: used for name, (used, _) in rows.items()},
+        "fill": {name: used / room for name, (used, room) in rows.items()},
+        "sha3": len(b.sha3_inputs), "copy_events": len(b.copy_events),
+        "exp_events": len(b.exp_events), "mulmod_events": len(b.mulmod_events),
+    }
 
 
 def super_workload(seed: int, k: int):
@@ -961,20 +1011,8 @@ def super_workload(seed: int, k: int):
             for sha3 in (True, False):
                 code = evm_loop_program(rng, iters, snippets, partners=True,
                                         sha3=sha3)
-                raw = code.to_bytes()
-                code_hash = int.from_bytes(keccak256(raw), "big")
-                st, bb = copy.deepcopy(state), copy.deepcopy(b)
-                st.accounts[sender] = Account(balance=10**18)
-                st.accounts[addr] = Account(code=raw)
-                bb.accounts[sender] = AccountState(balance=10**18)
-                bb.accounts[addr] = AccountState(code_hash=code_hash)
-                tr = Interpreter(st).run_tx(Tx(from_addr=sender, to=addr,
-                                               gas=SUPER_GAS, value=value,
-                                               data=calldata))
-                assert not tr.failed, "workload transaction failed"
-                bb.handle_tx(dict(from_addr=sender, to_addr=addr, value=value,
-                                  calldata=calldata, code_hash=code_hash),
-                             tr, code_db={addr: raw})
+                st, bb, _ = _call_fresh_contract(state, b, sender, addr, code,
+                                                 value, calldata)
                 rows = super_rows(bb, codes + [code], txs + [tx], k)
                 if all(used <= room for used, room in rows.values()):
                     fits = True
@@ -987,15 +1025,7 @@ def super_workload(seed: int, k: int):
         state, b = st, bb
         codes.append(code)
         txs.append(tx)
-    rows = super_rows(b, codes, txs, k)
-    stats = {
-        "txs": len(txs), "steps": len(b.steps), "rw_rows": len(b.rws.rws),
-        "usable_rows": usable_rows(1 << k),
-        "rows": {name: used for name, (used, _) in rows.items()},
-        "fill": {name: used / room for name, (used, room) in rows.items()},
-        "sha3": len(b.sha3_inputs), "copy_events": len(b.copy_events),
-        "exp_events": len(b.exp_events), "mulmod_events": len(b.mulmod_events),
-    }
+    stats = _super_stats(b, txs, k, super_rows(b, codes, txs, k))
     stats["fullest"] = max(stats["fill"], key=stats["fill"].get)
     return b, codes, txs, super_params(txs), stats
 
@@ -1061,5 +1091,202 @@ def super_prove_bench(k: int = 13, seed: int = 7, device=None, log=print) -> dic
         "cached": {"s": t5 - t4, "equal": again.proof == proof.proof,
                    "launches": launches},
         "resident_gb": resident,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the chunk's whole statement: the PI circuit and its instance, with the
+# state roots bound to the two-level MPT, and every transaction's
+# signature verified in-circuit
+def super_full_rows(b: CircuitInputBuilder, codes, txs, k: int,
+                    accounts_before: dict) -> dict:
+    """super_rows's regions of the SuperCircuit with `public_data`,
+    `accounts_before` and `with_sig` on, and the regions these add, read
+    from the sub-circuits of SuperCircuit(..., with_sig=True,
+    accounts_before=accounts_before): Sig (EV_ROWS a signature), the
+    MulMod rows of every signature in the shared MulMod region, the path
+    rows of the storage-subtrie and account-trie MPT circuits (the
+    account circuit's four exposure rows an account included) and the
+    rows of each one's Poseidon table, the PI circuit's padded header,
+    and in Keccak each signer's public key and PI's header."""
+    cap = usable_rows(1 << k)
+    c = SuperCircuit(b, codes, txs, super_params(txs), with_sig=True,
+                     accounts_before=accounts_before)
+    sigs = c.sig.events if c.sig is not None else []
+    rows = super_rows(b, codes, txs, k, keccak_extra=[
+        ev.pubkey_bytes() for ev in sigs] + [bytes(N_PI_BYTES)])
+    mm = len(c.mulmod.events) if c.mulmod is not None else 0
+    rows["mulmod"] = (mm + 1 if mm else 0, cap)
+    rows["sig"] = (len(sigs) * SIG_EV_ROWS, cap)
+    stor = _mpt_usage(c.mpt_stor) if c.mpt_stor is not None else (0, 0)
+    acct = _mpt_usage(c.mpt_acct)
+    rows["mpt_storage"] = (stor[0], cap)
+    rows["mpt_account"] = (acct[0] + 4 * len(c.mpt_acct.accounts), cap)
+    rows["poseidon_storage"] = (stor[1], cap)
+    rows["poseidon_account"] = (acct[1], cap)
+    rows["pi"] = (N_PADDED, cap)
+    return rows
+
+
+def super_full_workload(seed: int, k: int):
+    """super_workload's transactions for the chunk's whole statement:
+    the fullest region of super_full_rows at SUPER_FILL or more of its
+    rows.  Transactions are drawn as super_workload draws them, until one
+    does not fit; the chunk ends at once when the MulMod rows of one more
+    signature would overflow their region (at k=13 one signature's leave
+    no room for a second).  If the fullest region is then below SUPER_FILL, the
+    last transaction runs again with more loop iterations (its body
+    unchanged): the least count at which the fullest region reaches
+    SUPER_FILL, if that count fits.
+
+    Returns (builder, bytecodes, txs, params, public_data,
+    accounts_before, stats): accounts_before holds every sender and
+    contract (witness.mpt.AccountFields, as the builder starts them);
+    public_data has SUPER_CHAIN_ID, the account trie's roots before and
+    after the chunk (SuperCircuit.state_roots) and a seeded withdraw root
+    and data hash; stats are super_workload's over super_full_rows, with
+    the signatures, the storage and account updates and the roots."""
+    rng = np.random.default_rng(seed)
+    state = StateDB({})
+    b = CircuitInputBuilder(accounts={})
+    codes: list = []
+    txs: list = []
+    before: dict = {}
+
+    def fullest(rows):
+        return max(used / room for used, room in rows.values())
+
+    def fits(rows):
+        return all(used <= room for used, room in rows.values())
+
+    def run(chunk, tx, body, iters, snippets, sha3):
+        """The chunk (state, builder, codes, txs, accounts_before) with
+        `tx` calling a fresh contract of evm_loop_program(body, ...)."""
+        state0, b0, codes0, txs0, before0 = chunk
+        sender, addr = tx.recover_sender(), tx.to
+        code = evm_loop_program(body, iters, snippets, partners=True, sha3=sha3)
+        st, bb, code_hash = _call_fresh_contract(state0, b0, sender, addr, code,
+                                                 tx.value, tx.data)
+        bf = {**before0, sender: AccountFields(balance=10**18),
+              addr: AccountFields(code_hash=code_hash,
+                                  code_size=len(code.to_bytes()))}
+        rows = super_full_rows(bb, codes0 + [code], txs0 + [tx], k, bf)
+        return (st, bb, codes0 + [code], txs0 + [tx], bf), rows
+
+    rows: dict = {}
+    last = None  # (chunk before it, tx, body rng, iters, snippets, sha3)
+    while not txs or fullest(rows) < SUPER_FILL:
+        if txs:  # a signature's MulMod rows: the same for every signature
+            used, room = rows["mulmod"]
+            if used + (used - 1 - len(b.mulmod_events)) // len(txs) > room:
+                break
+        addr = EVM_CONTRACT_BASE + len(txs)
+        sk = int.from_bytes(rng.bytes(32), "big") % (secp256k1.N - 1) + 1
+        calldata = rng.bytes(int(rng.integers(0, SUPER_CALLDATA + 1)))
+        value = int(rng.integers(0, 1000))
+        tx = Transaction(nonce=0, gas=SUPER_GAS, to=addr, value=value,
+                         data=calldata, chain_id=SUPER_CHAIN_ID).sign(sk)
+        iters, snippets = int(rng.integers(8, 24)), int(rng.integers(16, 48))
+        chunk = (state, b, codes, txs, before)
+        got = None
+        for _ in range(8):
+            for sha3 in (True, False):
+                body = copy.deepcopy(rng)
+                nxt, nrows = run(chunk, tx, rng, iters, snippets, sha3)
+                if fits(nrows):
+                    got = (nxt, nrows, (chunk, tx, body, iters, snippets, sha3))
+                    break
+            if got:
+                break
+            iters, snippets = max(1, iters // 2), max(1, snippets // 2)
+        else:
+            break
+        (state, b, codes, txs, before), rows, last = got
+
+    if last is not None and fullest(rows) < SUPER_FILL:
+        # the least iteration count with the fullest region at SUPER_FILL
+        # or over its room (both grow with the count), by doubling, then
+        # bisection; taken if it fits
+        chunk, tx, body, lo, snippets, sha3 = last
+
+        def at(iters):
+            return run(chunk, tx, copy.deepcopy(body), iters, snippets, sha3)
+
+        hi, got = lo, None
+        while hi < 0xFFFF:
+            hi = min(2 * hi, 0xFFFF)
+            got = at(hi)
+            if not fits(got[1]) or fullest(got[1]) >= SUPER_FILL:
+                break
+            lo, got = hi, None
+        while got is not None and hi - lo > 1:
+            mid = (lo + hi) // 2
+            r = at(mid)
+            if not fits(r[1]) or fullest(r[1]) >= SUPER_FILL:
+                hi, got = mid, r
+            else:
+                lo = mid
+        if got is not None and fits(got[1]):
+            (state, b, codes, txs, before), rows = got
+
+    probe = SuperCircuit(b, codes, txs, super_params(txs), accounts_before=before)
+    prev_root, post_root = probe.state_roots
+    pd = PublicData(chain_id=SUPER_CHAIN_ID,
+                    prev_state_root=prev_root.to_bytes(32, "big"),
+                    post_state_root=post_root.to_bytes(32, "big"),
+                    withdraw_root=rng.bytes(32), data_hash=rng.bytes(32))
+    stats = {
+        **_super_stats(b, txs, k, rows), "signatures": len(txs),
+        "storage_updates": len(probe.mpt_stor.updates) if probe.mpt_stor else 0,
+        "account_updates": len(probe.mpt_acct.updates),
+        "state_roots": [hex(prev_root), hex(post_root)],
+    }
+    stats["fullest"] = max(stats["fill"], key=stats["fill"].get)
+    return b, codes, txs, super_params(txs), pd, before, stats
+
+
+def super_full_prove_bench(k: int = 13, seed: int = 7, device=None,
+                           log=print) -> dict:
+    """The chunk's whole statement over super_full_workload(seed, k): the
+    SuperCircuit with public_data, accounts_before and with_sig on, its
+    SRS, keygen, prove under the Poseidon transcript (the chunk proofs')
+    and verify with the PI instance, each timed (_prove_verify).
+
+    Returns {"k", "k_ext", "workload", "shapes" (circuit_stats and the
+    quotient degree), "regions" (whether Sig, both MPT circuits, their
+    Poseidon tables and PI are on), "srs_s", "keygen_s", "prove_s",
+    "verify_s", "ok", "proof_bytes", "proof", "vk", "instance",
+    "public_data", "keygen_phases", "prove_phases", "resident_gb",
+    "peak_gb" (the device memory allocated before the SRS, and the peak;
+    None on the CPU)}."""
+    dev = resolve(device)
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    b, codes, txs, params, pd, before, stats = super_full_workload(seed, k)
+    stats["workload_s"] = time.perf_counter() - t0
+    log(f"[super_full_bench k={k}] workload {stats}")
+
+    def make():
+        return SuperCircuit(b, codes, txs, params, public_data=pd,
+                            accounts_before=before, with_sig=True)
+
+    c, cs = make(), ConstraintSystem()
+    c.configure(cs)
+    shapes = {**circuit_stats(cs), "quotient_degree": quotient_degree(cs)}
+    rows = stats["rows"]
+    regions = {
+        "sig": c.sig is not None and c.with_sig_txs,
+        "mpt": c.mpt_stor is not None and c.mpt_acct is not None,
+        "poseidon": rows["poseidon_storage"] > 0 and rows["poseidon_account"] > 0,
+        "pi": c.pi is not None and cs.num_instance == 1,
+    }
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev) / 2**30 if cuda else None
+    r = _prove_verify(make, k, dev, poseidon=True, instances=[pd.instance()])
+    return {
+        **r, "workload": stats, "shapes": shapes, "regions": regions,
+        "instance": pd.instance(), "public_data": pd, "resident_gb": resident,
         "peak_gb": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
     }
